@@ -10,10 +10,19 @@ Phases, in order; any failure exits non-zero:
   4. the slice: RodentTracking (twin + clip) reset for 1024 envs and a
      20-control-step generate_unroll (100 physics substeps) with the keeper
      policy, sampling from a seeded generator; A and B must each launch at
-     least 100 times in it, and every qpos, qvel and reward must be finite.
-Then it prints the card's name and power limit, one JSON line with each
-kernel's launches, time per launch, plain time, bound and error, the
-rollout's env-steps/s, and last {"ok": true, "device": {...}}.
+     least 100 times in it, and every qpos, qvel and reward must be finite;
+  5. kernel C (SPD sweep inverse) against its plain version on the
+     (2048, 73, 73) stack [qM, qM + h diag(B)] of 1024 twin states and on a
+     (12, 29, 29) batch, with torch.linalg.inv timed beside it;
+  6. training at full width: train(...) with the arguments of
+     vnl_tpu_torch/bench.py (1024 envs, networks (1024, 1024), a shortened
+     episode) for four training steps with the fused position stage
+     (kernel A) and two with the unfused one (kernel C), an evaluation
+     after every interval; losses must be finite, parameters must move,
+     and the launch counts must be those of the chosen stage.
+Then it prints the training env-steps/s of both configurations, the card's
+name and power limit, one JSON line with each kernel's launches, time per
+launch, plain time, bound and error, and last {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--out details.json]
 (needs one CUDA device; builds into build/kernels).  Imports nothing of
@@ -25,7 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -36,6 +44,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024
 UNROLL = 20
 SEED = 0
+EVAL_EPISODE = 30     # control steps per episode in phase 6 (bench: 150)
 # published H100 SXM peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -222,6 +231,94 @@ def phase_rollout(device):
         root_z_mean=float(d.qpos[:, 2].mean()))
 
 
+def spd_batch(batch, n, gen):
+    """Random SPD matrices with uneven row scales (the inputs of the JAX
+    package's sweep test)."""
+    scale = 0.05 + 1.95 * torch.rand(batch, 1, n, generator=gen,
+                                     device="cuda")
+    L = torch.randn(batch, n, n, generator=gen, device="cuda") * scale
+    a = L @ L.transpose(1, 2) + 0.5 * torch.eye(n, device="cuda")
+    return (0.5 * (a + a.transpose(1, 2))).contiguous()
+
+
+def phase_kernel_c(m, gen):
+    from vnl_tpu_torch.ops import position as pos
+    from vnl_tpu_torch.ops import sweep
+    qM = pos._launch(m, random_states(m, BATCH, gen))[11]
+    hB = torch.diag(m.opt.timestep * m.dof_damping)
+    pair = torch.stack([qM, qM + hB])               # (2, B, nv, nv)
+    errs = {}
+    for name, a in (("twin_pair", pair), ("spd_12x29", spd_batch(12, 29,
+                                                                 gen))):
+        ker = sweep._launch(a)
+        plain = sweep.inv_spd_sweep_plain(a)
+        torch.cuda.synchronize()
+        scale = float(plain.abs().max())
+        errs[name] = check_close(name, ker, plain, 5e-3, 1e-4 * scale)
+        resid = float((a @ ker - torch.eye(a.shape[-1], device="cuda")
+                       ).abs().max())
+        if not resid < 5e-3:
+            raise AssertionError(f"{name}: |A X - I| = {resid:.3e}")
+        errs[name + "_resid"] = resid
+        errs[name + "_asym"] = float((ker - ker.transpose(-1, -2)
+                                      ).abs().max())
+    ms = time_ms(lambda: sweep._launch(pair))
+    plain_ms = time_ms(lambda: sweep.inv_spd_sweep_plain(pair), reps=5)
+    flat = pair.reshape(-1, m.nv, m.nv)
+    library_ms = time_ms(lambda: torch.linalg.inv(flat), reps=10)
+    nmat = flat.shape[0]
+    b_ms, b_by = bound_ms(2 * nmat * m.nv ** 2 * 4, nmat * 2 * m.nv ** 3)
+    return dict(name="sweep", route="cuda",
+                source="vnl_tpu_torch/csrc/sweep.cu",
+                replaces="vnl_tpu/ops/pallas_linalg.py:49",
+                max_abs_err=errs["twin_pair"], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms), errs
+
+
+def phase_training(fused: bool, steps: int):
+    """train(...) at the bench's widths; returns (launch counts, report)."""
+    from vnl_tpu_torch import bench, models
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    made = {}
+
+    def factory(*a, **kw):
+        net = models.make_intention_ppo_networks(*a, **kw)
+        made["net"] = net
+        made["init"] = {k: v.clone() for k, v in net.state_dict().items()}
+        return net
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rep = bench.run(fused, steps, episode_length=EVAL_EPISODE,
+                    network_factory=factory)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    bad = [k for k, v in rep["metrics"].items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    now = made["net"].state_dict()
+    still = [k for k, v in made["init"].items()
+             if k.endswith("weight") and torch.equal(v, now[k])]
+    if still:
+        raise AssertionError(f"parameters did not move: {still}")
+    widths = (made["net"].policy.encoder.proj_0.out_features,
+              made["net"].value.hidden_0.out_features)
+    if widths != (1024, 1024):
+        raise AssertionError(f"networks are not full width: {widths}")
+    nsteps = 2 * steps                       # warm-up + measured interval
+    a, b, c = (counts.get(k, 0) for k in ("position", "cg", "sweep"))
+    ok = (b >= 100 * nsteps and
+          ((a >= 100 * nsteps and c == 0) if fused
+           else (a == 0 and c >= 20 * nsteps)))
+    if not ok:
+        raise AssertionError(
+            f"fused={fused}: launches A {a}, B {b}, C {c} over {nsteps} "
+            "training steps do not match the chosen position stage")
+    print(json.dumps({"training": {k: v for k, v in rep.items()
+                                   if k != "metrics"}}), flush=True)
+    return counts, rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script drives "
@@ -240,7 +337,7 @@ def main() -> int:
     info = {"torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0]}
 
-    t = time.perf_counter()
+    t = t_start = time.perf_counter()
     build.build_all()
     info["build_s"] = time.perf_counter() - t
     for name, log in build.BUILD_LOG.items():
@@ -253,20 +350,28 @@ def main() -> int:
     row_a, errs_a = phase_kernel_a(m, gen)
     row_b, errs_b = phase_kernel_b(m, gen)
     counts, info["rollout"] = phase_rollout(device)
-    kernels = [row_a, row_b]
+    row_c, errs_c = phase_kernel_c(m, gen)
+    counts_fused, info["training_fused"] = phase_training(True, steps=2)
+    counts_unfused, info["training_unfused"] = phase_training(False, steps=1)
+    kernels = [row_a, row_b, row_c]
     for row in kernels:
-        row["launches"] = counts.get(row["name"], 0)
-    info["details"] = {"position": errs_a, "cg": errs_b}
+        # summed over the paths, each counted from zero on its own
+        row["launches"] = sum(c.get(row["name"], 0) for c in
+                              (counts, counts_fused, counts_unfused))
+        if row["launches"] < 1:
+            raise AssertionError(f"kernel {row['name']} never launched on "
+                                 "the main paths")
+    info["details"] = {"position": errs_a, "cg": errs_b, "sweep": errs_c}
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
+    from vnl_tpu_torch.bench import gpu_name_and_power_limit
+    smi = gpu_name_and_power_limit()
+    info["total_s"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(info, kernels=kernels, smi=smi), f, indent=1)
     print(json.dumps(info))
-    print(smi[0])
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

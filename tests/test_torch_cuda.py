@@ -1,4 +1,4 @@
-"""Kernels A and B against their plain PyTorch versions on a CUDA device
+"""Kernels A, B and C against their plain PyTorch versions on a CUDA device
 (marked ``cuda``; skipped without a card, since a CUDA kernel has no CPU
 mode).  Imports neither JAX nor vnl_tpu, so it also runs where only the
 port is installed:
@@ -13,6 +13,7 @@ from vnl_tpu_torch import compat
 from vnl_tpu_torch.ops import cg as cg_ops
 from vnl_tpu_torch.ops import launch_counts
 from vnl_tpu_torch.ops import position as pos_ops
+from vnl_tpu_torch.ops import sweep as sweep_ops
 from vnl_tpu_torch.physics import actuation, forward, inertia, solver
 
 B = 64
@@ -71,9 +72,56 @@ def test_cg_kernel_matches_plain(model):
 
 
 @pytest.mark.cuda
+def test_sweep_kernel_matches_plain(model):
+    """Kernel C on the twin's stacked pair [qM, qM + h diag(B)], on a
+    small odd n and on n = 120 (more than the default 48 KB of shared
+    memory): the plain version at rtol 5e-3 / atol 1e-4 of the
+    inverse's scale, |A X - I| < 5e-3, one launch per call."""
+    qpos, _ = _states(model)
+    qM = pos_ops.position(model, qpos)[11]
+    hB = torch.diag(model.opt.timestep * model.dof_damping)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    L = torch.randn(12, 29, 29, generator=gen, device="cuda")
+    small = L @ L.transpose(1, 2) + 0.5 * torch.eye(29, device="cuda")
+    L = torch.randn(3, 120, 120, generator=gen, device="cuda")
+    wide = L @ L.transpose(1, 2) + 0.5 * torch.eye(120, device="cuda")
+    for a in (torch.stack([qM, qM + hB], 1), small, wide):
+        before = launch_counts["sweep"]
+        got = sweep_ops.inv_spd_sweep(a)
+        assert launch_counts["sweep"] == before + 1
+        want = sweep_ops.inv_spd_sweep_plain(a)
+        _close(got, want, 5e-3, 1e-4 * float(want.abs().max()), "inverse")
+        eye = torch.eye(a.shape[-1], device="cuda")
+        assert float((a @ got - eye).abs().max()) < 5e-3
+        assert torch.equal(got, got.transpose(-1, -2))
+
+
+@pytest.mark.cuda
+def test_unfused_step_launches_kernel_c(model):
+    """One control step of the unfused stage: kernel C once, kernel B on
+    every substep, kernel A never."""
+    from vnl_tpu_torch.envs.base import PipelineEnv
+    qpos, qvel = _states(model, press=0.005)
+    env = PipelineEnv(model, n_frames=5, fused_position=False)
+    launch_counts.clear()
+    d = env.pipeline_init(qpos, qvel)
+    assert dict(launch_counts) == {"sweep": 1, "cg": 1}
+    d = env.pipeline_step(d, torch.zeros(B, model.nu, device="cuda"))
+    assert dict(launch_counts) == {"sweep": 2, "cg": 6}
+    assert bool(torch.isfinite(d.qpos).all())
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(model):
     with pytest.raises(ValueError):
         pos_ops.position(model, torch.zeros(4, model.nq, device="cuda",
                                             dtype=torch.float64))
     with pytest.raises(ValueError):
         pos_ops.position(model, torch.zeros(4, model.nq + 1, device="cuda"))
+    with pytest.raises(ValueError):
+        sweep_ops.inv_spd_sweep(torch.zeros(4, 5, 6, device="cuda"))
+    with pytest.raises(ValueError):
+        sweep_ops.inv_spd_sweep(torch.zeros(4, 5, 5, device="cuda",
+                                            dtype=torch.float64))
+    with pytest.raises(ValueError):     # one matrix must fit shared memory
+        sweep_ops.inv_spd_sweep(torch.zeros(1, 300, 300, device="cuda"))

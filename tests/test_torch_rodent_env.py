@@ -4,11 +4,19 @@ same state (converted from JAX to torch) with the same action.  Checks the
 observation (232), the reference features (795), every reward term, the
 reward and done, including the post-step-frame termination.
 
+The JAX env runs its unfused position stage on the CPU (the first substep
+of a control step inverts the mass matrix exactly, the other four refine
+the carried inverses).  The port is compared in both configurations: with
+its fused stage (every substep exact) and, like with like, with
+``fused_position=False``.
+
 Tolerances: after one control step the port's state differs from the JAX
 package's by the solver differences of tests/test_torch_forward.py, so
 observations (which hold qvel and actuator forces) and features compare at
 rtol/atol 1e-3 and the reward terms, all O(0.01) after weighting, at atol
-1e-5."""
+1e-5, in either configuration: the two exact inverses are different fp32
+algorithms (the port's sweep, the JAX package's Schur inverse), and that
+difference, not the refinement, sets the floor."""
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +49,21 @@ def envs():
 
 
 @pytest.fixture(scope="module")
+def envs_unfused(envs):
+    return envs[0], make_twin_env(device="cpu", fused_position=False)
+
+
+@pytest.fixture(scope="module")
 def reset_pair(envs):
+    return _reset_pair(envs)
+
+
+@pytest.fixture(scope="module")
+def reset_pair_unfused(envs_unfused):
+    return _reset_pair(envs_unfused)
+
+
+def _reset_pair(envs):
     """The JAX reset of B envs and the start frames / noise it drew
     (envs/rodent.py:145-176), handed to the torch reset explicitly."""
     jenv, tenv = envs
@@ -59,7 +81,16 @@ def reset_pair(envs):
 
 
 def test_reset_matches(reset_pair):
-    js, ts = reset_pair
+    _check_reset(reset_pair)
+
+
+def test_reset_unfused_matches(envs_unfused, reset_pair_unfused):
+    assert envs_unfused[1].fused_position is False
+    _check_reset(reset_pair_unfused)
+
+
+def _check_reset(pair):
+    js, ts = pair
     tp.assert_close(ts.pipeline_state.qpos, js.pipeline_state.qpos, 1e-6,
                     1e-6, "qpos")
     tp.assert_close(ts.obs, js.obs, 1e-3, 1e-3, "obs")
@@ -79,6 +110,14 @@ def _to_torch_state(js) -> State:
 
 
 def test_step_matches(envs, reset_pair):
+    _check_step(envs, reset_pair)
+
+
+def test_step_unfused_matches(envs_unfused, reset_pair_unfused):
+    _check_step(envs_unfused, reset_pair_unfused)
+
+
+def _check_step(envs, reset_pair):
     jenv, tenv = envs
     js, _ = reset_pair
     # the last env ends its sub-clip on this step: done must be 1

@@ -1,15 +1,21 @@
 """The slice end to end: generate_unroll of vnl_tpu_torch against vnl_tpu
 on the rodent twin, B = 2 envs for 3 control steps (15 physics substeps),
 driven by the keeper's mode policy with the same latent noise fed to both.
+The port runs once with its fused position stage and once, like the JAX
+env on the CPU, with ``fused_position=False`` (first substep exact, four
+refined).
 
 Tolerances: each step adds the solver differences of
 tests/test_torch_forward.py, and the policy feeds the state back into the
-actions, so after 3 steps observations compare at rtol/atol 1e-2 and the
-rewards (O(0.01)) at atol 1e-4."""
+actions.  After 3 steps the largest differences seen are 1e-4 in the
+observations and 1e-7 in the rewards (O(0.01)), in either configuration,
+so observations and actions compare at rtol/atol 1e-3 and the rewards at
+atol 1e-6."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from vnl_tpu import models as jmodels
@@ -21,13 +27,15 @@ from vnl_tpu_torch.models import make_inference_fn
 from vnl_tpu_torch.training import generate_unroll
 
 from test_torch_policy import _unflatten
-from test_torch_rodent_env import envs  # noqa: F401 (fixture)
+from test_torch_rodent_env import envs, envs_unfused  # noqa: F401 (fixtures)
 
 B, STEPS = 2, 3
 
 
-def test_generate_unroll_matches(envs):
-    jenv, tenv = envs
+@pytest.fixture(scope="module")
+def jax_unroll(envs):
+    """The JAX unroll, and the reset draws and latent noise it used."""
+    jenv = envs[0]
     with np.load(compat.KEEPER_POLICY) as z:
         flat = {k: z[k] for k in z.files}
     mean, std = flat.pop("normalizer.mean"), flat.pop("normalizer.std")
@@ -54,7 +62,7 @@ def test_generate_unroll_matches(envs):
     for _ in range(STEPS):
         step_key, k = jax.random.split(k)
         _, net_rng = jax.random.split(step_key)
-        noises.append(torch.as_tensor(np.asarray(
+        noises.append(torch.tensor(np.asarray(
             jax.random.normal(net_rng, (B, 64)))))
 
     frames, resets = [], []
@@ -62,6 +70,20 @@ def test_generate_unroll_matches(envs):
         rng_frame, rng_noise, _, _ = jax.random.split(kk, 4)
         frames.append(int(jax.random.randint(rng_frame, (), 0, 235)))
         resets.append(np.asarray(1e-3 * jax.random.normal(rng_noise, (74,))))
+    return jroll, jfinal, noises, frames, resets
+
+
+def test_generate_unroll_matches(envs, jax_unroll):
+    _check_unroll(envs[1], jax_unroll)
+
+
+def test_generate_unroll_unfused_matches(envs_unfused, jax_unroll):
+    assert not envs_unfused[1].fused_position
+    _check_unroll(envs_unfused[1], jax_unroll)
+
+
+def _check_unroll(tenv, jax_unroll, tol=1e-3, reward_atol=1e-6):
+    jroll, jfinal, noises, frames, resets = jax_unroll
     ts = tenv.reset(B, start_frame=torch.tensor(frames),
                     noise=torch.as_tensor(np.stack(resets)))
     mode = make_inference_fn(compat.policy_from_numpy(
@@ -75,13 +97,13 @@ def test_generate_unroll_matches(envs):
     assert troll.reward.shape == (STEPS, B)
     assert troll.observation.shape == (STEPS, B, 232)
     np.testing.assert_allclose(troll.observation.numpy(),
-                               np.asarray(jroll.observation), rtol=1e-2,
-                               atol=1e-2)
+                               np.asarray(jroll.observation), rtol=tol,
+                               atol=tol)
     np.testing.assert_allclose(troll.action.numpy(),
-                               np.asarray(jroll.action), rtol=1e-2, atol=1e-2)
+                               np.asarray(jroll.action), rtol=tol, atol=tol)
     np.testing.assert_allclose(troll.reward.numpy(),
-                               np.asarray(jroll.reward), atol=1e-4)
+                               np.asarray(jroll.reward), atol=reward_atol)
     np.testing.assert_array_equal(troll.discount.numpy(),
                                   np.asarray(jroll.discount))
     np.testing.assert_allclose(tfinal.obs.numpy(), np.asarray(jfinal.obs),
-                               rtol=1e-2, atol=1e-2)
+                               rtol=tol, atol=tol)

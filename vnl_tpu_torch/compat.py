@@ -130,3 +130,45 @@ def policy_to_numpy(policy) -> dict:
         else:
             out[f"{name}.bias"] = v
     return out
+
+
+def value_from_numpy(src: Arrays, device="cuda"):
+    """The value MLP with the weights of a Flax parameter tree flattened to
+    ``hidden_k.kernel`` / ``hidden_k.bias`` keys (kernel (in, out) becomes
+    ``nn.Linear.weight`` (out, in))."""
+    from vnl_tpu_torch.models.networks import MLP
+    a = _arrays(src)
+    sizes = []
+    while f"hidden_{len(sizes)}.kernel" in a:
+        sizes.append(a[f"hidden_{len(sizes)}.kernel"].shape[1])
+    value = MLP(a["hidden_0.kernel"].shape[0], sizes)
+    state = {}
+    for key, v in a.items():
+        name, leaf = key.rsplit(".", 1)
+        v = torch.as_tensor(np.asarray(v, np.float32))
+        state[f"{name}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+            v.T.contiguous() if leaf == "kernel" else v)
+    value.load_state_dict(state)
+    return value.to(device)
+
+
+def value_to_numpy(value) -> dict:
+    """Inverse of :func:`value_from_numpy` (Flax layout)."""
+    out = {}
+    for key, v in value.state_dict().items():
+        name, leaf = key.rsplit(".", 1)
+        v = v.detach().cpu().numpy()
+        out[f"{name}.{'kernel' if leaf == 'weight' else 'bias'}"] = (
+            v.T if leaf == "weight" else v)
+    return out
+
+
+def normalizer_from_numpy(src: Arrays, device="cuda"):
+    """A RunningStatisticsState from ``count``, ``mean``,
+    ``summed_variance`` and ``std`` arrays."""
+    from vnl_tpu_torch.training.running_statistics import \
+        RunningStatisticsState
+    a = _arrays(src)
+    return RunningStatisticsState(**{
+        k: torch.tensor(np.asarray(a[k], np.float32), device=device)
+        for k in ("count", "mean", "summed_variance", "std")})

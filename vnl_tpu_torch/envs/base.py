@@ -28,11 +28,17 @@ class State:
 
 class PipelineEnv:
     """Env driven by the physics engine with ``n_frames`` substeps per
-    control step."""
+    control step.
 
-    def __init__(self, model: Model, n_frames: int = 1):
+    ``fused_position`` chooses the position stage of every substep: kernel
+    A (the default), or the unfused stage on kernel C.  It is the
+    counterpart of the JAX package's pallas_position.enabled()."""
+
+    def __init__(self, model: Model, n_frames: int = 1,
+                 fused_position: bool = True):
         self._model = model
         self._n_frames = n_frames
+        self._fused_position = fused_position
 
     @property
     def sys(self) -> Model:
@@ -47,6 +53,10 @@ class PipelineEnv:
         return self._n_frames
 
     @property
+    def fused_position(self) -> bool:
+        return self._fused_position
+
+    @property
     def action_size(self) -> int:
         return self._model.nu
 
@@ -55,13 +65,17 @@ class PipelineEnv:
         d = make_data(self._model, qpos.shape[0], qpos=qpos, qvel=qvel)
         if act is not None:
             d = d.replace(act=act)
-        return forward(self._model, d)
+        return forward(self._model, d, fused_position=self._fused_position)
 
     def pipeline_step(self, data: Data, ctrl: torch.Tensor) -> Data:
-        """n_frames substeps; every substep runs the exact position stage
-        (the JAX package refines the carried inverses only when its fused
-        position kernel is off, envs/base.py:114-115)."""
-        data = data.replace(ctrl=ctrl)
-        for _ in range(self._n_frames):
-            data = step(self._model, data)
+        """n_frames substeps.  The first inverts the mass matrix exactly;
+        with the fused stage so do the others, while the unfused stage
+        refines the carried inverses on them (as the JAX package does when
+        its fused position kernel is off, envs/base.py:114-125)."""
+        fused = self._fused_position
+        data = step(self._model, data.replace(ctrl=ctrl),
+                    fused_position=fused)
+        for _ in range(self._n_frames - 1):
+            data = step(self._model, data, refine_inverse=not fused,
+                        fused_position=fused)
         return data

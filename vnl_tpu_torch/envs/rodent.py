@@ -71,8 +71,10 @@ class RodentTracking(PipelineEnv):
         termination_threshold: float = 5.0,
         body_error_multiplier: float = 1.0,
         physics_steps_per_control_step: int = 5,
+        fused_position: bool = True,
     ):
-        super().__init__(model, n_frames=physics_steps_per_control_step)
+        super().__init__(model, n_frames=physics_steps_per_control_step,
+                         fused_position=fused_position)
         b2id = {n: i for i, n in enumerate(model.body_names)}
         dev = model.device
         self._endeff_idxs = model.index([b2id[n] for n in end_eff_names])

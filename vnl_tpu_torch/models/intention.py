@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from vnl_tpu_torch.training.running_statistics import normalize
+from vnl_tpu_torch.models.networks import lecun_normal_
 
 
 class NormedStack(nn.Module):
@@ -56,6 +56,18 @@ class IntentionPolicy(nn.Module):
         self.register_buffer("obs_mean", torch.zeros(obs_size))
         self.register_buffer("obs_std", torch.ones(obs_size))
 
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Flax's initial values: LeCun-normal kernels, zero biases,
+        LayerNorm at scale 1 and bias 0."""
+        with torch.no_grad():
+            for mod in self.modules():
+                if isinstance(mod, nn.Linear):
+                    lecun_normal_(mod.weight, generator)
+                    mod.bias.zero_()
+                elif isinstance(mod, nn.LayerNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
+
     def forward(self, traj: torch.Tensor, obs: torch.Tensor,
                 latent_noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
@@ -69,6 +81,8 @@ class IntentionPolicy(nn.Module):
                                        device=post_mean.device,
                                        dtype=post_mean.dtype)
         intention = post_mean + latent_noise * torch.exp(0.5 * post_logvar)
-        obs = normalize(obs, self.obs_mean, self.obs_std)
+        # training/running_statistics.py normalize (the training package
+        # imports this one, so the expression is written out here)
+        obs = (obs - self.obs_mean) / self.obs_std
         g = self.decoder(torch.cat([intention, obs], -1))
         return self.action_head(g), post_mean, post_logvar

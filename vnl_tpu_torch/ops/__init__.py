@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (ops/position.py: kernel A, ops/cg.py: kernel B).
+version (ops/position.py: kernel A, the fused position stage; ops/cg.py:
+kernel B, the CG contact solve; ops/sweep.py: kernel C, the SPD sweep
+inverse of the unfused position stage).
 
 ``launch_counts`` counts kernel launches by name; a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main

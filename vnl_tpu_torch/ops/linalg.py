@@ -1,7 +1,11 @@
-"""SPD inverse by recursive Schur complements (PyTorch counterpart of
-vnl_tpu/ops/linalg.py:20 inv_spd): all matrix products, log2(n) depth.
-The plain position stage (ops/position.py) uses it, as the JAX package's
-_position_reference does."""
+"""Batched linear algebra on plain matrix products (PyTorch counterpart of
+vnl_tpu/ops/linalg.py).
+
+``inv_spd``: SPD inverse by recursive Schur complements, log2(n) depth; the
+plain position stage (ops/position.py) uses it, as the JAX package's
+_position_reference does.  ``refine_inv``: Newton-Schulz polish of a
+carried inverse, which the unfused position stage runs on every substep of
+a control step but the first (physics/inertia.py invert_mass_matrix)."""
 
 from __future__ import annotations
 
@@ -30,3 +34,16 @@ def inv_spd(a: torch.Tensor) -> torch.Tensor:
     out = torch.cat([torch.cat([TL, TR], -1),
                      torch.cat([TR.transpose(-1, -2), Si], -1)], -2)
     return 0.5 * (out + out.transpose(-1, -2))
+
+
+def refine_inv(a: torch.Tensor, x0: torch.Tensor,
+               iters: int = 2) -> torch.Tensor:
+    """Newton-Schulz refinement X <- X (2I - A X) of an approximate inverse
+    ``x0`` of (..., n, n) matrices ``a``, symmetrised at the end.  With the
+    previous substep's inverse as the seed two iterations reach the fp32
+    floor."""
+    eye2 = 2.0 * torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    x = x0
+    for _ in range(iters):
+        x = x @ (eye2 - a @ x)
+    return 0.5 * (x + x.transpose(-1, -2))

@@ -1,10 +1,13 @@
 """Forward dynamics and semi-implicit Euler integration (PyTorch
 counterpart of vnl_tpu/physics/forward.py), batched over envs.
 
-One substep: position stage (kernel A: FK, com quantities, CRB mass matrix
-and its inverses), collision, constraints, velocity stage, actuation,
-smooth acceleration, the CG constraint solve (kernel B), then Euler with
-implicit joint damping.  RK4 and the implicit integrators are not ported.
+One substep: position stage (FK, com quantities, CRB mass matrix and its
+inverses), collision, constraints, velocity stage, actuation, smooth
+acceleration, the CG constraint solve (kernel B), then Euler with implicit
+joint damping.  The position stage has two configurations: fused (kernel A
+does all of it in one launch) and unfused (kinematics -> com_pos -> crb in
+plain PyTorch, the exact inverses by kernel C or a refinement of the
+carried ones).  RK4 and the implicit integrators are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from vnl_tpu_torch.physics import actuation as _actuation
 from vnl_tpu_torch.physics import collision as _collision
 from vnl_tpu_torch.physics import constraint as _constraint
 from vnl_tpu_torch.physics import inertia as _inertia
+from vnl_tpu_torch.physics import kinematics as _kinematics
 from vnl_tpu_torch.physics import rne as _rne
 from vnl_tpu_torch.physics import solver as _solver
 from vnl_tpu_torch.physics.model import Data, IntegratorType, JointType, Model
@@ -61,13 +65,22 @@ def make_data(m: Model, batch: int, qpos: Optional[torch.Tensor] = None,
         contact_frame=z(m.ncon_max, 3, 3), contact_force=z(m.ncon_max, 4))
 
 
-def fwd_position(m: Model, d: Data):
-    (xpos, xquat, xmat, xipos, xanchor, xaxis, gxp, gxm, scom, cinert, cdof,
-     qM, *invs) = position_ops.position(m, d.qpos.contiguous())
-    d = d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
-                  xanchor=xanchor, xaxis=xaxis, geom_xpos=gxp, geom_xmat=gxm,
-                  subtree_com=scom, cinert=cinert, cdof=cdof, qM=qM,
-                  qMinv=invs[0], qMhBinv=invs[-1])
+def fwd_position(m: Model, d: Data, refine_inverse: bool = False,
+                 fused_position: bool = True):
+    """Position stage, collision and constraints.  ``fused_position``
+    chooses kernel A (always exact) over the unfused stage, which alone
+    reads ``refine_inverse`` (see inertia.crb)."""
+    if fused_position:
+        (xpos, xquat, xmat, xipos, xanchor, xaxis, gxp, gxm, scom, cinert,
+         cdof, qM, *invs) = position_ops.position(m, d.qpos.contiguous())
+        d = d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
+                      xanchor=xanchor, xaxis=xaxis, geom_xpos=gxp,
+                      geom_xmat=gxm, subtree_com=scom, cinert=cinert,
+                      cdof=cdof, qM=qM, qMinv=invs[0], qMhBinv=invs[-1])
+    else:
+        d = _kinematics.kinematics(m, d)
+        d = _kinematics.com_pos(m, d)
+        d = _inertia.crb(m, d, refine_inverse=refine_inverse)
     con_dist, con_pos, con_frame, con_pair = _collision.collide(m, d)
     d = d.replace(contact_dist=con_dist, contact_pos=con_pos,
                   contact_frame=con_frame)
@@ -82,10 +95,12 @@ def fwd_velocity(m: Model, d: Data) -> Data:
                      qfrc_passive=_rne.passive(m, d))
 
 
-def forward(m: Model, d: Data) -> Data:
-    """Full forward dynamics: derived fields and qacc."""
+def forward(m: Model, d: Data, refine_inverse: bool = False,
+            fused_position: bool = True) -> Data:
+    """Full forward dynamics: derived fields and qacc.  ``refine_inverse``
+    is valid when d is the previous substep's output."""
     pin_fp32()
-    d, efc = fwd_position(m, d)
+    d, efc = fwd_position(m, d, refine_inverse, fused_position)
     d = fwd_velocity(m, d)
     force, qfrc_act, act_dot = _actuation.actuation(m, d)
     d = d.replace(actuator_force=force, qfrc_actuator=qfrc_act,
@@ -134,11 +149,12 @@ def integrate(m: Model, d: Data) -> Data:
                      act=act)
 
 
-def step(m: Model, d: Data) -> Data:
+def step(m: Model, d: Data, refine_inverse: bool = False,
+         fused_position: bool = True) -> Data:
     """One physics step: forward dynamics + Euler integration."""
     if m.opt.integrator not in (int(IntegratorType.EULER),
                                 int(IntegratorType.IMPLICITFAST)):
         raise NotImplementedError(
             f"integrator {IntegratorType(m.opt.integrator).name} is not "
             "ported yet")
-    return integrate(m, forward(m, d))
+    return integrate(m, forward(m, d, refine_inverse, fused_position))

@@ -5,9 +5,9 @@ keeper policy, sampling) at B envs, warms up, then traces a few control
 steps with torch.profiler and prints one JSON line: wall time per control
 step, device time per kernel group (kernel A, kernel B, the rest), the
 number of kernel launches per control step, and the device's busy and
-idle shares (sum of kernel times over wall time; kernels of one stream do
-not overlap).  The profiler's own overhead inflates the wall time a
-little, so env-steps/s is also timed without it.
+idle shares (sum of kernel times over the wall time of the same work
+without the profiler, whose own overhead inflates the wall time; kernels
+of one stream do not overlap).
 
 Usage (from the repo root, on the machine with the card):
   python3 -m vnl_tpu_torch.profile_rollout
@@ -24,6 +24,25 @@ import torch
 
 BATCH = 1024
 STEPS = 4
+
+
+def device_groups(prof):
+    """Device time (us) and launches of a torch.profiler trace by kernel
+    group: the hand-written kernels A, B and C, copies, and the rest."""
+    groups = collections.Counter()
+    launches = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.name
+        key = ("kernel A (position)" if "position_kernel" in name else
+               "kernel B (cg)" if "cg_kernel" in name else
+               "kernel C (sweep)" if "sweep_kernel" in name else
+               "memcpy/memset" if "memcpy" in name.lower()
+               or "memset" in name.lower() else "other torch kernels")
+        groups[key] += ev.time_range.end - ev.time_range.start   # us
+        launches[key] += 1
+    return groups, launches
 
 
 def main() -> int:
@@ -59,18 +78,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    groups = collections.Counter()
-    launches = collections.Counter()
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = ev.name
-        key = ("kernel A (position)" if "position_kernel" in name else
-               "kernel B (cg)" if "cg_kernel" in name else
-               "memcpy/memset" if "memcpy" in name.lower()
-               or "memset" in name.lower() else "other torch kernels")
-        groups[key] += ev.time_range.end - ev.time_range.start   # us
-        launches[key] += 1
+    groups, launches = device_groups(prof)
     busy_us = sum(groups.values())
     out = dict(
         device=torch.cuda.get_device_name(0), batch=BATCH,
@@ -82,8 +90,8 @@ def main() -> int:
                             for k, v in groups.most_common()},
         launches_per_step={k: v / STEPS
                            for k, v in launches.most_common()},
-        device_busy_share=busy_us / 1e6 / wall,
-        device_idle_share=1.0 - busy_us / 1e6 / wall)
+        device_busy_share=busy_us / 1e6 / plain_wall,
+        device_idle_share=1.0 - busy_us / 1e6 / plain_wall)
     top = collections.Counter()
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", 0) or 0
