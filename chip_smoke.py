@@ -3,10 +3,15 @@
 
 Phases, in order; any failure exits non-zero:
   1. build the hand-written CUDA kernels (csrc/*.cu, nvcc for sm_90a);
-  2. kernel A (position stage) against its plain PyTorch version on 1024
-     rodent-twin states with random joint angles;
-  3. kernel B (CG contact solve) against its plain version on 1024 contact
-     states made by kernel A, the port's collision and its constraints;
+  2. kernel A (position stage) against its plain PyTorch version on 1024,
+     1000 and 3 rodent-twin states with random joint angles, and two
+     launches on the same states against each other, bit for bit;
+  3. kernel B (CG contact solve) against its plain version on 1024, 1000
+     and 3 contact states made by kernel A, the port's collision and its
+     constraints (kernel_bench.check_cg: rtol = atol = 1e-3 on every env
+     against the plain version in float32; an env that misses it, at most
+     0.5% of a batch, must meet the plain version run in float64 at the
+     same tolerance), and two launches against each other, bit for bit;
   4. the slice: RodentTracking (twin + clip) reset for 1024 envs and a
      20-control-step generate_unroll (100 physics substeps) with the keeper
      policy, sampling from a seeded generator; A and B must each launch at
@@ -22,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      and the launch counts must be those of the chosen stage.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with each kernel's launches, time per
-launch, plain time, bound and error, and last {"ok": true, "device": {...}}.
+launch, plain time, bound, error, registers, shared memory and resident
+blocks per SM, every number measured in this run, and last
+{"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--out details.json]
 (needs one CUDA device; builds into build/kernels).  Imports nothing of
@@ -42,6 +49,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024
+OTHER_BATCHES = (1000, 3)   # also checked against the plain versions
 UNROLL = 20
 SEED = 0
 EVAL_EPISODE = 30     # control steps per episode in phase 6 (bench: 150)
@@ -55,40 +63,9 @@ def fail(msg: str) -> int:
     return 1
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call (CUDA events around each call)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 def bound_ms(nbytes: float, flops: float):
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
-
-
-def random_states(m, batch, gen):
-    """Root near its rest pose with a random tilt, hinges uniform inside
-    their ranges."""
-    dev = m.device
-    qpos = m.qpos0.expand(batch, -1).clone()
-    qpos[:, :3] += 0.01 * torch.randn(batch, 3, generator=gen, device=dev)
-    quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev) + 0.2 * torch.randn(
-        batch, 4, generator=gen, device=dev)
-    qpos[:, 3:7] = quat / quat.norm(dim=-1, keepdim=True)
-    lo, hi = m.jnt_range[1:, 0], m.jnt_range[1:, 1]
-    u = torch.rand(batch, m.nq - 7, generator=gen, device=dev)
-    qpos[:, 7:] = lo + u * (hi - lo)
-    return qpos.contiguous()
 
 
 def check_close(name, got, want, rtol, atol):
@@ -101,13 +78,18 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
-def phase_kernel_a(m, gen):
+def spill_bytes(name: str) -> int:
+    """Largest spill reported by ptxas for any kernel of one source."""
+    import re
+    from vnl_tpu_torch.ops import build
+    return max([int(x) for x in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", build.BUILD_LOG.get(name, ""))]
+        or [0])
+
+
+def check_position(m, qpos, ker, plain):
+    """Kernel A's outputs against the plain version's; returns the errors."""
     from vnl_tpu_torch.ops import position as pos
-    from vnl_tpu_torch.physics import inertia
-    qpos = random_states(m, BATCH, gen)
-    ker = pos._launch(m, qpos)
-    plain = pos.position_plain(m, qpos)
-    torch.cuda.synchronize()
     errs = {}
     nplain = len(pos.OUTPUT_NAMES) - 2
     for name, k, p in zip(pos.OUTPUT_NAMES[:nplain], ker, plain):
@@ -123,37 +105,48 @@ def phase_kernel_a(m, gen):
         if not resid < 5e-3:
             raise AssertionError(f"{name}: |A X - I| = {resid:.3e}")
         errs[name + "_resid"] = resid
-    ms = time_ms(lambda: pos._launch(m, qpos))
+    return errs
+
+
+def same_bits(name, first, second):
+    for i, (a, b) in enumerate(zip(first, second)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: output {i} differs between two "
+                                 "launches on the same inputs")
+
+
+def phase_kernel_a(m, gen):
+    from vnl_tpu_torch.kernel_bench import QUEUED, random_states, time_ms
+    from vnl_tpu_torch.ops import position as pos
+    from vnl_tpu_torch.physics import inertia
+    qpos = random_states(m, BATCH, gen)
+    ker = pos._launch(m, qpos)
+    plain = pos.position_plain(m, qpos)
+    torch.cuda.synchronize()
+    errs = check_position(m, qpos, ker, plain)
+    same_bits("position", ker, pos._launch(m, qpos))
+    for batch in OTHER_BATCHES:
+        q = random_states(m, batch, gen)
+        errs[f"batch_{batch}"] = max(check_position(
+            m, q, pos._launch(m, q), pos.position_plain(m, q)).values())
+    ms = time_ms(lambda: pos._launch(m, qpos), queued=QUEUED)
     plain_ms = time_ms(lambda: pos.position_plain(m, qpos), reps=5)
     nmat = 2 if inertia.needs_implicit_damping(m) else 1
     out_floats = sum(int(np.prod(s)) for s in pos.output_shapes(m))
     nbytes = BATCH * 4 * (m.nq + out_floats)
     flops = BATCH * 2 * nmat * m.nv ** 3    # the sweeps; the rest is < 5%
     b_ms, b_by = bound_ms(nbytes, flops)
+    res = pos.resources(m)
     return dict(name="position", route="cuda",
                 source="vnl_tpu_torch/csrc/position.cu",
                 replaces="vnl_tpu/ops/pallas_position.py:229",
                 max_abs_err=max(v for k, v in errs.items()
-                                if not k.endswith("_resid")),
+                                if k in pos.OUTPUT_NAMES),
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None), errs
-
-
-def contact_states(m, gen):
-    """Kernel-A states pressed into the floor, through collision and
-    constraints, up to the CG solve's inputs."""
-    from vnl_tpu_torch.physics import actuation, forward, inertia, solver
-    qpos = random_states(m, BATCH, gen)
-    qpos[:, 2] -= 0.005
-    qvel = 0.5 * torch.randn(BATCH, m.nv, generator=gen, device=m.device)
-    d = forward.make_data(m, BATCH, qpos=qpos, qvel=qvel)
-    d, efc = forward.fwd_position(m, d)
-    d = forward.fwd_velocity(m, d)
-    _, qfrc_act, _ = actuation.actuation(m, d)
-    qacc_smooth = inertia.solve_m(d, d.qfrc_passive - d.qfrc_bias + qfrc_act)
-    active = int((d.contact_dist < 0).sum())
-    return solver.cg_inputs(m, d, efc, qacc_smooth,
-                            max(m.opt.iterations, 1)), active
+                library_ms=None, regs=res["regs"], smem_bytes=res["smem_bytes"],
+                blocks_per_sm=res["blocks_per_sm"],
+                local_bytes=res["local_bytes"],
+                spill_bytes=spill_bytes("position")), errs
 
 
 def cg_cost(st, args):
@@ -169,22 +162,41 @@ def cg_cost(st, args):
     return nbytes, flops
 
 
+CG_OUT = ("qacc", "qfrc_constraint", "con_f")
+
+
 def phase_kernel_b(m, gen):
+    from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg, contact_states,
+                                            time_ms)
     from vnl_tpu_torch.ops import cg as cg_ops
-    (args, st), active = contact_states(m, gen)
+    (args, st), active = contact_states(m, BATCH, gen)
     ker = cg_ops._launch(st, args)
-    plain = cg_ops.cg_plain(*args, statics=st)
     torch.cuda.synchronize()
-    errs = {n: check_close(n, k, p, 1e-3, 1e-3)
-            for n, k, p in zip(("qacc", "qfrc_constraint", "con_f"), ker,
-                               plain)}
-    ms = time_ms(lambda: cg_ops._launch(st, args))
+    errs = check_cg(st, args, ker)      # rtol = atol = 1e-3
+    same_bits("cg", ker, cg_ops._launch(st, args))
+    off, unstable = errs["off_envs"], errs["unstable_envs"]
+    for batch in OTHER_BATCHES:
+        (a, s), _ = contact_states(m, batch, gen)
+        e = check_cg(s, a, cg_ops._launch(s, a))
+        errs[f"batch_{batch}"] = e
+        off, unstable = off + e["off_envs"], unstable + e["unstable_envs"]
+    ms = time_ms(lambda: cg_ops._launch(st, args), queued=QUEUED)
     plain_ms = time_ms(lambda: cg_ops.cg_plain(*args, statics=st), reps=5)
     b_ms, b_by = bound_ms(*cg_cost(st, args))
+    res = cg_ops.resources(st, m.device)
     return dict(name="cg", route="cuda", source="vnl_tpu_torch/csrc/cg.cu",
                 replaces="vnl_tpu/ops/pallas_cg.py:74",
-                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None), \
+                max_abs_err=max(errs[n] for n in CG_OUT),
+                ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                regs=res["regs"], smem_bytes=res["smem_bytes"],
+                blocks_per_sm=res["blocks_per_sm"],
+                local_bytes=res["local_bytes"],
+                spill_bytes=spill_bytes("cg"),
+                # envs of the three batches held to the float64 plain solve,
+                # and envs on which the plain solve differs from itself
+                checked_envs=BATCH + sum(OTHER_BATCHES), off_envs=off,
+                unstable_envs=unstable), \
         dict(errs, active_contacts=active, ncon=st.ncon, nlimit=st.nlimit)
 
 
@@ -242,6 +254,7 @@ def spd_batch(batch, n, gen):
 
 
 def phase_kernel_c(m, gen):
+    from vnl_tpu_torch.kernel_bench import QUEUED, random_states, time_ms
     from vnl_tpu_torch.ops import position as pos
     from vnl_tpu_torch.ops import sweep
     qM = pos._launch(m, random_states(m, BATCH, gen))[11]
@@ -262,17 +275,22 @@ def phase_kernel_c(m, gen):
         errs[name + "_resid"] = resid
         errs[name + "_asym"] = float((ker - ker.transpose(-1, -2)
                                       ).abs().max())
-    ms = time_ms(lambda: sweep._launch(pair))
+    ms = time_ms(lambda: sweep._launch(pair), queued=QUEUED)
     plain_ms = time_ms(lambda: sweep.inv_spd_sweep_plain(pair), reps=5)
     flat = pair.reshape(-1, m.nv, m.nv)
     library_ms = time_ms(lambda: torch.linalg.inv(flat), reps=10)
     nmat = flat.shape[0]
     b_ms, b_by = bound_ms(2 * nmat * m.nv ** 2 * 4, nmat * 2 * m.nv ** 3)
+    res = sweep.resources(m.nv)
     return dict(name="sweep", route="cuda",
                 source="vnl_tpu_torch/csrc/sweep.cu",
                 replaces="vnl_tpu/ops/pallas_linalg.py:49",
                 max_abs_err=errs["twin_pair"], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms), errs
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                regs=res["regs"], smem_bytes=res["smem_bytes"],
+                blocks_per_sm=res["blocks_per_sm"],
+                local_bytes=res["local_bytes"],
+                spill_bytes=spill_bytes("sweep")), errs
 
 
 def phase_training(fused: bool, steps: int):

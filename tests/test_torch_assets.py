@@ -23,6 +23,24 @@ def test_model_npz_equals_fresh_compile():
         np.testing.assert_array_equal(v, committed[k], err_msg=k)
 
 
+@pytest.mark.parametrize("scene", sorted(exporter.SMALL_SCENES))
+def test_small_scene_npz_equals_fresh_compile(scene):
+    """The small scenes the kernels are tried on without the JAX package
+    (nv = 7 damped, nv = 7 with contacts and a limit, nv = 96 undamped)."""
+    fresh = exporter.model_to_numpy(exporter.small_scene(scene))
+    path = {"box_chain": compat.BOX_CHAIN_MODEL,
+            "ball_arm": compat.BALL_ARM_MODEL,
+            "star96": compat.STAR96_MODEL}[scene]
+    with np.load(path) as z:
+        committed = {k: z[k] for k in z.files}
+    assert sorted(fresh) == sorted(committed)
+    for k, v in fresh.items():
+        assert v.dtype == committed[k].dtype, k
+        np.testing.assert_array_equal(v, committed[k], err_msg=k)
+    m = compat.model_from_numpy(path, device="cpu")
+    assert m.nv == {"box_chain": 7, "ball_arm": 7, "star96": 96}[scene]
+
+
 def test_xml_is_the_generator_output():
     with open(tp.TWIN_XML) as f:
         assert f.read() == exporter.twin_xml()

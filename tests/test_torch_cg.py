@@ -155,3 +155,150 @@ def test_factored_products_match_dense(twin):
     tp.assert_close(got[0], efc_d.jt_f(jnp.asarray(lf), jnp.asarray(cf)),
                     1e-4, 1e-5, "jt_f")
     assert isinstance(tefc, tcon.EfcSystem)
+
+
+def _contact_box():
+    from vnl_tpu import mjcf, physics
+    jm = mjcf.load_model(tp.CONTACT_BOX)
+    d = jax.vmap(lambda _: physics.forward(jm, physics.make_data(jm)))(
+        jnp.arange(1))
+    efc, args = _batched(jm, d, 1)
+    lim_dof = np.zeros(1, np.int32)         # the inert row the port adds
+    args = list(map(tp.to_torch, args))
+    args[5:8] = [torch.zeros(1, 1)] * 3
+    st = tcg.CgStatics.make(jm.nv, lim_dof, efc.con_chain1, efc.con_chain2,
+                            jm.opt.iterations, jm.opt.ls_iterations)
+    return st, args
+
+
+def _twin_system(twin):
+    jm, _, efc, args, _, _ = twin
+    return _statics(jm, efc, 6, 6), [tp.to_torch(a[:1]) for a in args]
+
+
+@pytest.mark.parametrize("scene", ["twin", "contact_box"])
+def test_limit_map_inverts_lim_dof(twin, scene):
+    st, _ = _twin_system(twin) if scene == "twin" else _contact_box()
+    inv = tcg.kernel_tables(st)["lim_of_dof"]
+    assert inv.shape == (st.nv,)
+    np.testing.assert_array_equal(inv[st.lim_dof], np.arange(st.nlimit))
+    assert np.all(inv[np.setdiff1d(np.arange(st.nv), st.lim_dof)] == -1)
+    with pytest.raises(ValueError):         # two rows on one dof
+        tcg.kernel_tables(tcg.CgStatics.make(
+            st.nv, np.array([0, 0], np.int32), st.chain1, st.chain2, 1, 1))
+
+
+@pytest.mark.parametrize("scene", ["twin", "contact_box"])
+def test_chain_tables_reproduce_chain_masks(twin, scene):
+    """The per-side dof lists and per-dof side lists of kernel B rebuild
+    chain2 / chain1 exactly, and J v and J^T f computed from them in numpy
+    (as the kernel walks them) match the port's EfcSystem."""
+    st, a = _twin_system(twin) if scene == "twin" else _contact_box()
+    t = tcg.kernel_tables(st)
+    nc, nv = st.ncon, st.nv
+    sides = np.zeros((2 * nc, nv), np.float32)
+    for sc in range(2 * nc):
+        own = t["side_dof"][t["side_start"][sc]:t["side_start"][sc + 1]]
+        assert np.all(np.diff(own) > 0)
+        sides[sc, own] = 1
+    np.testing.assert_array_equal(sides[:nc], st.chain2)
+    np.testing.assert_array_equal(sides[nc:], st.chain1)
+    back = np.zeros_like(sides)
+    for d in range(nv):
+        own = t["dof_side"][t["dof_start"][d]:t["dof_start"][d + 1]]
+        assert len(set(own.tolist())) == len(own)
+        back[own, d] = 1
+    np.testing.assert_array_equal(back, sides)
+
+    cdof, g36, lsign = (np.asarray(a[i][0], np.float64) for i in (3, 4, 5))
+    mu = np.asarray(a[8][0], np.float64)
+    g = g36.reshape(2, 3, 6, nc)                     # [sd, f, k, c]
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=nv)
+    side = np.stack([(cdof[o] * v[o, None]).sum(0) for o in (
+        t["side_dof"][t["side_start"][sc]:t["side_start"][sc + 1]]
+        for sc in range(2 * nc))])                   # (2 nc, 6)
+    base = (np.einsum("fkc,ck->cf", g[0], side[:nc])
+            - np.einsum("fkc,ck->cf", g[1], side[nc:]))
+    rows = np.stack([base[:, 0] + mu[:, 0] * base[:, 1],
+                     base[:, 0] - mu[:, 0] * base[:, 1],
+                     base[:, 0] + mu[:, 1] * base[:, 2],
+                     base[:, 0] - mu[:, 1] * base[:, 2]], -1)
+    tefc = tcg._efc(st, *a[3:])
+    lj, cj = tefc.jx(torch.as_tensor(v, dtype=torch.float32)[None])
+    tp.assert_close(torch.as_tensor(lsign * v[st.lim_dof]), lj[0], 1e-5, 1e-6,
+                    "lim_jx")
+    tp.assert_close(torch.as_tensor(rows), cj[0], 1e-4, 1e-5, "con_jx")
+
+    lf = rng.normal(size=st.nlimit)
+    cf = rng.normal(size=(nc, 4))
+    fv = np.stack([cf.sum(-1), mu[:, 0] * (cf[:, 0] - cf[:, 1]),
+                   mu[:, 1] * (cf[:, 2] - cf[:, 3])], -1)        # (nc, 3)
+    gf = np.concatenate([np.einsum("fkc,cf->ck", g[sd], fv)
+                         for sd in (0, 1)])                      # (2 nc, 6)
+    jtf = np.zeros(nv)
+    for d in range(nv):
+        u = np.zeros(6)
+        for sc in t["dof_side"][t["dof_start"][d]:t["dof_start"][d + 1]]:
+            u += gf[sc] if sc < nc else -gf[sc]
+        jtf[d] = cdof[d] @ u
+        if t["lim_of_dof"][d] >= 0:
+            row = t["lim_of_dof"][d]
+            jtf[d] += lsign[row] * lf[row]
+    want = tefc.jt_f(torch.as_tensor(lf, dtype=torch.float32)[None],
+                     torch.as_tensor(cf, dtype=torch.float32)[None])
+    tp.assert_close(torch.as_tensor(jtf), want[0], 1e-4, 1e-5, "jt_f")
+
+
+@pytest.mark.parametrize("case", ["plain", "float64", "far", "too_many",
+                                  "not_finite"])
+def test_check_cg_yardstick(twin, case):
+    """kernel_bench.check_cg, the yardstick of kernel B on the card, fed on
+    the CPU with stand-ins for the kernel's outputs: the plain float32
+    result passes with no env off; the float64 result passes, and an env
+    of it that is pushed past the float32 result still passes as one off
+    env of a large batch; a result beyond the tolerance of both, more off
+    envs than the share allowed, and a non-finite value are refused."""
+    from vnl_tpu_torch import kernel_bench
+    jm, _, efc, args, _, _ = twin
+    st = _statics(jm, efc, 6, 6)
+    args = [tp.to_torch(a) for a in args]
+    plain = tcg.cg_plain(*args, statics=st)
+    ref = tcg.cg_plain(*[a.double() for a in args], statics=st)
+    if case == "plain":
+        out = kernel_bench.check_cg(st, args, plain)
+        assert out["off_envs"] == 0 and out["qacc"] == 0.0
+    elif case == "float64":
+        ker = [r.float() for r in ref]
+        out = kernel_bench.check_cg(st, args, ker, max_off=0.25)
+        assert out["off_envs"] <= 1 and out["unstable_envs"] == 0
+        # env 0: on the far side of the float64 result, within the tolerance
+        # of it and beyond the tolerance of the float32 one
+        i = int(ref[0][0].abs().argmax())
+        want, p = float(ref[0][0, i]), float(plain[0][0, i])
+        step = 0.9e-3 * (1 + abs(want))
+        ker[0][0, i] = want + (step if want >= p else -step)
+        gap = abs(float(ker[0][0, i]) - p)
+        out = kernel_bench.check_cg(st, args, ker, max_off=0.25)
+        assert out["off_envs"] == int(gap > 1e-3 * (1 + abs(p)))
+    elif case == "far":
+        ker = [p.clone() for p in plain]
+        ker[0][1, 3] += 0.01 * (1 + float(ker[0][1, 3].abs()))
+        with pytest.raises(AssertionError, match="float64"):
+            kernel_bench.check_cg(st, args, ker)
+    elif case == "too_many":
+        # one env of four leans on the float64 result: more than 0.5%
+        ker = [p.clone() for p in plain]
+        nudge = 1.05e-3 * (1 + plain[0][0].abs())
+        ker[0][0] = plain[0][0] + nudge * torch.sign(ref[0][0].float()
+                                                     - plain[0][0])
+        far = ((ker[0][0].double() - ref[0][0]).abs()
+               > 1e-3 * (1 + ref[0][0].abs())).any()
+        with pytest.raises(AssertionError,
+                           match="float64" if far else "at most 0"):
+            kernel_bench.check_cg(st, args, ker)
+    else:
+        ker = [p.clone() for p in plain]
+        ker[2][0, 0, 0] = float("nan")
+        with pytest.raises(AssertionError, match="not finite"):
+            kernel_bench.check_cg(st, args, ker)

@@ -6,10 +6,13 @@ port is installed:
   python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
-from vnl_tpu_torch import compat
+from vnl_tpu_torch import compat, kernel_bench
 from vnl_tpu_torch.ops import cg as cg_ops
 from vnl_tpu_torch.ops import launch_counts
 from vnl_tpu_torch.ops import position as pos_ops
@@ -26,15 +29,28 @@ def model():
     return compat.model_from_numpy(compat.TWIN_MODEL, device="cuda")
 
 
-def _states(m, press=0.0):
+def _states(m, press=0.0, batch=B):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    qpos = m.qpos0.expand(B, -1).clone()
+    qpos = m.qpos0.expand(batch, -1).clone()
     qpos[:, 2] -= press
     lo, hi = m.jnt_range[1:, 0], m.jnt_range[1:, 1]
-    qpos[:, 7:] = lo + torch.rand(B, m.nq - 7, generator=gen,
+    qpos[:, 7:] = lo + torch.rand(batch, m.nq - 7, generator=gen,
                                   device="cuda") * (hi - lo)
-    qvel = 0.5 * torch.randn(B, m.nv, generator=gen, device="cuda")
+    qvel = 0.5 * torch.randn(batch, m.nv, generator=gen, device="cuda")
     return qpos, qvel
+
+
+def _free_states(m, batch, spread):
+    """qpos0 with a tilted root and hinges within +-spread rad (for the
+    small scenes, whose hinges have no range)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    qpos = m.qpos0.expand(batch, -1).clone()
+    quat = torch.tensor([1.0, 0, 0, 0], device="cuda") + 0.3 * torch.randn(
+        batch, 4, generator=gen, device="cuda")
+    qpos[:, 3:7] = quat / quat.norm(dim=-1, keepdim=True)
+    qpos[:, 7:] += spread * (2 * torch.rand(batch, m.nq - 7, generator=gen,
+                                            device="cuda") - 1)
+    return qpos.contiguous()
 
 
 def _close(got, want, rtol, atol, name):
@@ -43,32 +59,152 @@ def _close(got, want, rtol, atol, name):
         name, float(err.max()))
 
 
-@pytest.mark.cuda
-def test_position_kernel_matches_plain(model):
-    qpos, _ = _states(model)
+def _check_position(m, qpos):
+    """Kernel A against the plain version at the tolerances of
+    tests/test_pallas_position.py, one launch counted, and the same bits
+    from a second launch."""
     before = launch_counts["position"]
-    got = pos_ops.position(model, qpos)
+    got = pos_ops.position(m, qpos)
     assert launch_counts["position"] == before + 1
-    want = pos_ops.position_plain(model, qpos)
+    want = pos_ops.position_plain(m, qpos)
+    assert len(got) == len(want) == len(pos_ops.output_shapes(m))
     for name, g, w in zip(pos_ops.OUTPUT_NAMES[:12], got, want):
         _close(g, w, 2e-5, 2e-5, name)
-    for name, g, w in zip(pos_ops.OUTPUT_NAMES[12:], got[12:], want[12:]):
+    eye = torch.eye(m.nv, device="cuda")
+    hB = torch.diag(m.opt.timestep * m.dof_damping)
+    for name, g, w, A in zip(pos_ops.OUTPUT_NAMES[12:], got[12:], want[12:],
+                             (got[11], got[11] + hB)):
         _close(g, w, 5e-3, 1e-4 * float(w.abs().max()), name)
+        assert float((A @ g - eye).abs().max()) < 5e-3, name
+    again = pos_ops.position(m, qpos)
+    for name, g, a in zip(pos_ops.OUTPUT_NAMES, got, again):
+        assert torch.equal(g, a), name
+
+
+def _cg_args(m, qpos, qvel):
+    batch = qpos.shape[0]
+    d = forward.make_data(m, batch, qpos=qpos, qvel=qvel)
+    d, efc = forward.fwd_position(m, d)
+    d = forward.fwd_velocity(m, d)
+    _, qfrc_act, _ = actuation.actuation(m, d)
+    qacc_smooth = inertia.solve_m(d, d.qfrc_passive - d.qfrc_bias + qfrc_act)
+    active = int((d.contact_dist < 0).sum())
+    return solver.cg_inputs(m, d, efc, qacc_smooth,
+                            max(m.opt.iterations, 1)), active
+
+
+def _check_cg(args, st, large_batch=False):
+    """Kernel B against the plain version at rtol = atol = 1e-3
+    (tests/test_pallas_cg.py), one launch counted, and the same bits from a
+    second launch.  ``large_batch``: through kernel_bench.check_cg, which
+    holds an env that misses the float32 plain result (at most 0.5% of the
+    batch) to the plain version run in float64, at the same tolerance."""
+    before = launch_counts["cg"]
+    got = cg_ops.cg(*args, statics=st)
+    assert launch_counts["cg"] == before + 1
+    if large_batch:
+        kernel_bench.check_cg(st, args, got)
+    else:
+        want = cg_ops.cg_plain(*args, statics=st)
+        for name, g, w in zip(("qacc", "qfrc_constraint", "con_f"), got,
+                              want):
+            _close(g, w, 1e-3, 1e-3, name)
+    again = cg_ops.cg(*args, statics=st)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_position_kernel_matches_plain(model):
+    _check_position(model, _states(model)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 1000])
+def test_position_kernel_batch_sizes(model, batch):
+    _check_position(model, _states(model, batch=batch)[0])
+
+
+@pytest.mark.cuda
+def test_position_kernel_undamped_twin(model):
+    """No damping: one matrix is swept and 13 outputs come back."""
+    m = dataclasses.replace(model, cache={},
+                            dof_damping=torch.zeros_like(model.dof_damping))
+    assert not inertia.needs_implicit_damping(m)
+    _check_position(m, _states(m)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["box_chain", "star96"])
+def test_position_kernel_small_and_widest_model(model, scene):
+    """nv = 7 (the smallest register tile, damped) and nv = 96 (the widest
+    one, undamped); the twin's nv = 73 takes the third."""
+    path = {"box_chain": compat.BOX_CHAIN_MODEL,
+            "star96": compat.STAR96_MODEL}[scene]
+    m = compat.model_from_numpy(path, device="cuda")
+    assert m.nv == {"box_chain": 7, "star96": 96}[scene]
+    _check_position(m, _free_states(m, 5, 0.5))
+
+
+@pytest.mark.cuda
+def test_position_kernel_rejects_wider_models(model):
+    wide = dataclasses.replace(model, nv=97, cache={})
+    with pytest.raises(ValueError):
+        pos_ops.position(wide, _states(model)[0])
 
 
 @pytest.mark.cuda
 def test_cg_kernel_matches_plain(model):
-    qpos, qvel = _states(model, press=0.005)
-    d = forward.make_data(model, B, qpos=qpos, qvel=qvel)
-    d, efc = forward.fwd_position(model, d)
-    d = forward.fwd_velocity(model, d)
-    _, qfrc_act, _ = actuation.actuation(model, d)
-    qacc_smooth = inertia.solve_m(d, d.qfrc_passive - d.qfrc_bias + qfrc_act)
-    args, st = solver.cg_inputs(model, d, efc, qacc_smooth, 6)
-    got = cg_ops.cg(*args, statics=st)
-    want = cg_ops.cg_plain(*args, statics=st)
-    for name, g, w in zip(("qacc", "qfrc_constraint", "con_f"), got, want):
-        _close(g, w, 1e-3, 1e-3, name)
+    (args, st), active = _cg_args(model, *_states(model, press=0.005))
+    assert active > 0
+    _check_cg(args, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 1000])
+def test_cg_kernel_batch_sizes(model, batch):
+    (args, st), _ = _cg_args(model, *_states(model, press=0.005,
+                                             batch=batch))
+    _check_cg(args, st, large_batch=batch > 64)
+
+
+@pytest.mark.cuda
+def test_cg_kernel_small_scene(model):
+    """nv = 7: a ball with a limited hinged arm pressed into a plane (three
+    contacts, one limit row beyond its range)."""
+    m = compat.model_from_numpy(compat.BALL_ARM_MODEL, device="cuda")
+    qpos = m.qpos0.expand(5, -1).clone()
+    qpos[:, 2] = 0.045
+    qpos[:, 7:] += 0.35
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qvel = 0.2 * torch.randn(5, m.nv, generator=gen, device="cuda")
+    (args, st), active = _cg_args(m, qpos.contiguous(), qvel)
+    assert active > 0 and (st.nv, st.ncon, st.nlimit) == (7, 3, 1)
+    _check_cg(args, st)
+
+
+@pytest.mark.cuda
+def test_cg_kernel_wide_system(model):
+    """More than 160 constraint rows (the line search then reads its rows
+    from shared memory): the twin's system with three more contacts that
+    stay inactive, so the solve is that of the test above."""
+    (args, st), _ = _cg_args(model, *_states(model, press=0.005))
+    narrow = cg_ops.cg(*args, statics=st)
+    pad = 3
+    wide = cg_ops.CgStatics.make(
+        st.nv, st.lim_dof, *[np.concatenate([c, c[:pad]])
+                             for c in (st.chain1, st.chain2)],
+        st.iters, st.ls_iters)
+    assert wide.nlimit + 4 * wide.ncon > 160 >= st.nlimit + 4 * st.ncon
+    args = list(args)
+    args[4] = torch.cat([args[4], args[4][:, :, :pad]], 2).contiguous()
+    for i in (8, 9, 10):
+        args[i] = torch.cat([args[i], args[i][:, :pad]], 1).contiguous()
+    args[9][:, st.ncon:] = -1e3         # far from touching: no force
+    _check_cg(args, wide)
+    got = cg_ops.cg(*args, statics=wide)
+    assert bool((got[2][:, st.ncon:] == 0).all())
+    _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
 
 
 @pytest.mark.cuda

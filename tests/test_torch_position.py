@@ -75,23 +75,66 @@ def test_plain_matches_pallas_kernel_box():
 
 
 def test_kernel_tables_describe_the_tree():
-    """The static tables kernel A walks: tree levels cover every body once
-    with parents on earlier levels, and the parent-dof chains reproduce
-    the model's dof ancestry."""
+    """The static tables kernel A walks: pointer doubling over body_parent
+    reaches the world frame from every body within nrounds rounds (and not
+    within one fewer), and the (dof, ancestor) pairs reproduce the model's
+    dof ancestry."""
     tm = tp.torch_model(tp.jax_twin())
     t = tpos.kernel_tables(tm)
-    order, start = t["ints"]["level_body"], t["ints"]["level_start"]
-    assert sorted(order) == list(range(1, tm.nbody))
-    level = np.zeros(tm.nbody, int)
-    for lv in range(t["nlevel"]):
-        level[order[start[lv]:start[lv + 1]]] = lv + 1
-    parent = np.asarray(tm.body_parentid)
-    assert np.all(level[parent[1:]] == level[1:] - 1)
-    dof_parent = t["ints"]["dof_parent"]
+    parent = np.asarray(t["ints"]["body_parent"]).copy()
+    parent[0] = 0
+    assert np.all(parent[1:] < np.arange(1, tm.nbody))
+    anc, left = parent.copy(), []
+    for _ in range(t["nrounds"]):
+        left.append(int((anc != 0).sum()))
+        anc = anc[anc]
+    assert np.all(anc == 0) and left[-1] > 0
+    assert t["depth"].max() == 35 and t["nrounds"] == 6
+    pair = t["ints"]["anc_pair"]
+    assert len(set(pair.tolist())) == len(pair)
     anc = np.zeros((tm.nv, tm.nv), bool)
-    for i in range(tm.nv):
-        j = i
-        while j >= 0:
-            anc[i, j] = True
-            j = dof_parent[j]
+    anc[pair >> 16, pair & 0xffff] = True
     np.testing.assert_array_equal(anc, np.asarray(tm.dof_ancestor_mask))
+
+
+@pytest.mark.parametrize("scene", ["twin", "box_chain"])
+def test_subtree_lists_reproduce_subtree_sums(scene):
+    """Summing each body's descendant list (what kernel A does for subtree
+    com and the composite inertias) gives body_subtree_mask @ values, and
+    every list starts with the body itself and ascends."""
+    jm = {"twin": tp.jax_twin, "box_chain": tp.jax_box_chain}[scene]()
+    tm = tp.torch_model(jm)
+    ints = tpos.kernel_tables(tm)["ints"]
+    start, body = ints["sub_start"], ints["sub_body"]
+    assert len(start) == tm.nbody + 1 and start[-1] == len(body)
+    vals = np.random.default_rng(0).normal(size=(tm.nbody, 5))
+    got = np.stack([vals[body[start[b]:start[b + 1]]].sum(0)
+                    for b in range(tm.nbody)])
+    want = np.asarray(tm.body_subtree_mask, np.float64) @ vals
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    for b in range(tm.nbody):
+        own = body[start[b]:start[b + 1]]
+        assert own[0] == b and np.all(np.diff(own) > 0)
+
+
+@pytest.mark.parametrize("nv", [1, 7, 29, 73, 96])
+def test_tile_map_covers_matrix_once(nv):
+    """Every (row, column) of an nv x nv matrix lies in exactly one
+    thread's register tile, and the tile chosen is an instantiated one."""
+    tr, tc = tpos.tile_shape(nv)
+    assert (tr, tc) in tpos.TILE_SHAPES
+    rs = tpos.tile_map(nv, tr, tc)
+    assert rs.shape == (32 * tpos.WARPS, tr * tc, 2)
+    inside = rs[(rs >= 0).all(-1)]
+    hits = np.zeros((nv, nv), int)
+    np.add.at(hits, (inside[:, 0], inside[:, 1]), 1)
+    assert np.all(hits == 1)
+    assert np.all(rs[(rs < 0).any(-1)] == -1)
+
+
+def test_tile_shape_rejects_wider_matrices():
+    widest = max(min(tpos.WARPS * tr, 32 * tc)
+                 for tr, tc in tpos.TILE_SHAPES)
+    assert widest >= 96
+    with pytest.raises(ValueError):
+        tpos.tile_shape(widest + 1)

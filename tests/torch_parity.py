@@ -47,25 +47,7 @@ CONTACT_BOX = """<mujoco>
 </mujoco>"""
 
 
-# the box scene with a damped hinged child: the Pallas position kernel needs
-# at least one pointer-doubling round, and a tree whose only joint is free
-# has none (vnl_tpu/ops/pallas_position.py:154 indexes jumps[0])
-BOX_CHAIN = """<mujoco>
-  <option timestep="0.005"/>
-  <worldbody>
-    <geom name="base" type="box" size="1 1 0.1" pos="0 0 0.1"/>
-    <body name="b" pos="0 0 0.5">
-      <freejoint/>
-      <geom name="top" type="box" size="0.1 0.12 0.08" density="300"/>
-      <body name="arm" pos="0.1 0 0">
-        <joint name="hinge" type="hinge" axis="0 1 0" damping="0.05"
-               armature="0.01"/>
-        <geom type="capsule" fromto="0 0 0 0.2 0 0" size="0.03"
-              contype="0" conaffinity="0"/>
-      </body>
-    </body>
-  </worldbody>
-</mujoco>"""
+BOX_CHAIN = exporter.BOX_CHAIN
 
 
 def jax_module(name):

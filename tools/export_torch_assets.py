@@ -12,6 +12,9 @@ vnl_tpu_torch/assets/:
   with the options of envs/rodent.py:71-82, plus Option and the dims.
 - rodent_twin_clip.npz: a 250-frame ReferenceClip made from a smooth qpos
   trajectory inside the joint ranges (data/pipeline.py process_recording).
+- box_chain_model.npz, ball_arm_model.npz, star96_model.npz: the compiles
+  of three small scenes (nv = 7 with a damped hinge; nv = 7 with plane
+  contacts and a joint limit; nv = 96 undamped) for the kernels' tests.
 - keeper_13fcbe84_policy.npz: the policy params and observation
   normalizer of the 230M keeper checkpoint.
 
@@ -264,6 +267,95 @@ def keeper_policy() -> dict:
     return out
 
 
+# the box scene with a damped hinged child (nv = 7): the smallest model the
+# kernels are tried on.  The child is there because the Pallas position
+# kernel needs at least one pointer-doubling round, and a tree whose only
+# joint is free has none (vnl_tpu/ops/pallas_position.py:154 indexes
+# jumps[0]).
+BOX_CHAIN = """<mujoco>
+  <option timestep="0.005"/>
+  <worldbody>
+    <geom name="base" type="box" size="1 1 0.1" pos="0 0 0.1"/>
+    <body name="b" pos="0 0 0.5">
+      <freejoint/>
+      <geom name="top" type="box" size="0.1 0.12 0.08" density="300"/>
+      <body name="arm" pos="0.1 0 0">
+        <joint name="hinge" type="hinge" axis="0 1 0" damping="0.05"
+               armature="0.01"/>
+        <geom type="capsule" fromto="0 0 0 0.2 0 0" size="0.03"
+              contype="0" conaffinity="0"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+
+# a ball with a limited, damped hinged arm on a plane (nv = 7, three
+# plane contacts, one limit row): the smallest constraint system the CG
+# kernel is tried on
+BALL_ARM = """<mujoco>
+  <option timestep="0.002" solver="CG" iterations="6" ls_iterations="6"
+          cone="pyramidal"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="1 1 0.1"/>
+    <body name="ball" pos="0 0 0.05">
+      <freejoint/>
+      <geom name="ball" type="sphere" size="0.05" density="500"/>
+      <body name="arm" pos="0.05 0 0">
+        <joint name="elbow" type="hinge" axis="0 1 0" range="-0.3 0.3"
+               limited="true" damping="0.02" armature="0.005"/>
+        <geom name="arm" type="capsule" fromto="0 0 0 0.15 0 0" size="0.02"
+              density="500"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+
+def star_xml(n_hinges: int = 90) -> str:
+    """A free ball with ``n_hinges`` undamped hinged spokes (nv = 6 +
+    n_hinges; 96 is the widest matrix kernel A's register tiles cover):
+    shallow, so its mass matrix stays well conditioned in float32."""
+    spokes = []
+    for i in range(n_hinges):
+        a = 2.0 * np.pi * i / n_hinges
+        z = 0.05 * ((i % 5) - 2) / 2.0
+        x, y = 0.06 * np.cos(a), 0.06 * np.sin(a)
+        axis = ("0 0 1", "1 0 0", "0 1 0")[i % 3]
+        spokes.append(
+            f'      <body name="s{i}" pos="{x:.5f} {y:.5f} {z:.5f}">\n'
+            f'        <joint name="j{i}" type="hinge" axis="{axis}" '
+            f'armature="0.001"/>\n'
+            f'        <geom type="capsule" fromto="0 0 0 {x / 2:.5f} '
+            f'{y / 2:.5f} 0.01" size="0.004" contype="0" '
+            f'conaffinity="0"/>\n'
+            f'      </body>')
+    return ('<mujoco>\n  <option timestep="0.002"/>\n  <worldbody>\n'
+            '    <geom name="base" type="plane" size="1 1 0.1"/>\n'
+            '    <body name="hub" pos="0 0 0.3">\n      <freejoint/>\n'
+            '      <geom name="ball" type="sphere" size="0.05"/>\n'
+            + "\n".join(spokes)
+            + '\n    </body>\n  </worldbody>\n</mujoco>\n')
+
+
+SMALL_SCENES = {"box_chain": lambda: BOX_CHAIN, "ball_arm": lambda: BALL_ARM,
+                "star96": star_xml}
+
+
+def small_scene(name: str):
+    """The vnl_tpu compile of one of SMALL_SCENES."""
+    from vnl_tpu import mjcf
+    return mjcf.load_model(SMALL_SCENES[name]())
+
+
+def export_small_scenes():
+    """<name>_model.npz of every small scene, for the tests that run the
+    kernels on the card without the JAX package."""
+    for name in SMALL_SCENES:
+        np.savez_compressed(os.path.join(ASSETS, f"{name}_model.npz"),
+                            **model_to_numpy(small_scene(name)))
+
+
 def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -271,6 +363,7 @@ def main():
     from vnl_tpu.data.pipeline import process_recording
 
     os.makedirs(ASSETS, exist_ok=True)
+    export_small_scenes()
     xml = twin_xml()
     xml_path = os.path.join(ASSETS, "rodent_twin.xml")
     with open(xml_path, "w") as f:

@@ -16,6 +16,9 @@ from vnl_tpu_torch.physics import model as model_lib
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 TWIN_MODEL = os.path.join(ASSETS, "rodent_twin_model.npz")
 TWIN_CLIP = os.path.join(ASSETS, "rodent_twin_clip.npz")
+BOX_CHAIN_MODEL = os.path.join(ASSETS, "box_chain_model.npz")   # nv = 7
+BALL_ARM_MODEL = os.path.join(ASSETS, "ball_arm_model.npz")     # nv = 7
+STAR96_MODEL = os.path.join(ASSETS, "star96_model.npz")         # nv = 96
 KEEPER_POLICY = os.path.join(ASSETS, "keeper_13fcbe84_policy.npz")
 
 Arrays = Union[str, Mapping[str, np.ndarray]]

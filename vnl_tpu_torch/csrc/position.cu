@@ -6,39 +6,68 @@
 // geom poses, subtree com, cinert, cdof, the CRB mass matrix qM (+armature)
 // and, by a Jacobi-scaled symmetric sweep, qM^-1 and (qM + h diag(B))^-1.
 //
-// What bounds it on an H100: per env it reads 74 floats and writes about
-// 75 KB (three 73x73 matrices dominate), and the two sweeps are
-// 2 * 2 * nv^3 ~ 1.6 MFLOP of fp32 FMA work outside the tensor cores.  At
-// B = 1024 both limits are tens of microseconds; the sweeps' 73 pivot
-// steps, each a block-wide barrier, are the real cost of this first
-// version.
+// What bounds it on an H100: per env it reads nq floats and writes every
+// output once (three nv x nv matrices dominate), and the two sweeps are
+// 2 * 2 * nv^3 fp32 operations outside the tensor cores.  Both limits are
+// far below what the dependent chains cost: nv pivot steps per sweep and the
+// depth of the body tree in the walk.  The kernel is bound by the number of
+// instructions the schedulers can start and by those chains, so the design
+// shortens the chains and spends as few instructions as it can on every
+// step of them.
 //
-// Design: the TPU layout (batch in 128 lanes, tree gathers as one-hot
-// matmuls) is not carried over.  Each block owns one env and keeps every
-// per-env quantity in shared memory: bodies are composed level by level
-// (threads over the bodies of one tree level), subtree sums run in reverse
-// body order, qM is assembled by walking each dof's parent-dof chain, and
-// both inverses are swept pivot by pivot with threads over the matrix
-// entries of both matrices at once.  All arithmetic is fp32; the kernel
-// allocates nothing and runs on the caller's stream.
+// Design (the TPU layout, batch in lanes and tree gathers as one-hot
+// matmuls, is not carried over):
+//  * World poses by pointer doubling.  Every body first composes its own
+//    joints into its pose in its parent's frame (all bodies at once, the
+//    joint anchors and axes in that frame beside it); then
+//    ceil(log2(depth)) rounds of X[b] <- X[anc[b]] . X[b], anc[b] <-
+//    anc[anc[b]] bring every pose to the world frame, so a tree 35 bodies
+//    deep costs 6 dependent steps, not 35.
+//  * Subtree com and the composite inertias are sums over each body's
+//    static descendant list, one thread per (body, component), in list
+//    order: no step per tree level, no atomics, the same result on every
+//    run.  qM is filled from the static list of (dof, ancestor dof) pairs.
+//  * Sweeps in registers.  Each matrix has its own NW warps.  Thread
+//    (warp, lane) of a matrix owns its entries (r, s) = (warp + i * NW,
+//    lane + 32 * j), i < TR, j < TC, for all pivots; TR and TC are template
+//    constants, so the tile is unrolled and no entry pays index arithmetic,
+//    and one tall tile per thread (not two short ones, one per matrix)
+//    spreads the fixed cost of a pivot over twice the FMAs.  A warp's rows
+//    keep their pivot-column entries in one of its own lanes, so the column
+//    comes by TR shuffles; only the pivot row passes through shared memory:
+//    the warp that owns row k+1 writes it, already shifted by e_k, and the
+//    reciprocal of the pivot into the other half of a double buffer right
+//    after its update.  A pivot so costs a thread TR shuffles, TC + 1
+//    loads, TC multiplications, TR * TC FMAs and one barrier among the
+//    matrix's own warps (a named barrier: the two sweeps drift apart and
+//    fill each other's stalls).  Both the row and the column are taken as
+//    they were before the update, which is not bitwise symmetric.  The
+//    inverses leave straight from the tiles, neighbouring lanes on
+//    neighbouring columns.
+//  * Shared memory holds one nv x nv buffer, in which qM is assembled (and
+//    which first carries the walk's second pose buffer, then the bodies'
+//    cinert), the per-body and per-dof quantities and the pivot snapshots,
+//    which come first so that their addresses are constants.
+//  * Outputs leave as coalesced stores from shared memory.
+// All arithmetic is fp32; the kernel allocates nothing and runs on the
+// caller's stream.
 
 #include <cuda_runtime.h>
 
 struct PosModel {
-  int nb, nj, nv, nq, ng, damped, nlevel;
+  int nb, nj, nv, nq, ng, damped, nrounds, npair;
   const int* body_parent;   // (nb)
   const int* body_jntadr;   // (nb)
   const int* body_jntnum;   // (nb)
   const int* body_rootid;   // (nb)
-  const int* level_start;   // (nlevel + 1) offsets into level_body
-  const int* level_body;    // bodies 1..nb-1 ordered by tree depth
+  const int* sub_start;     // (nb + 1) offsets into sub_body
+  const int* sub_body;      // each body's subtree (itself first), ascending
   const int* jnt_type;      // (nj) 0 free, 1 ball, 2 slide, 3 hinge
   const int* jnt_qposadr;   // (nj)
-  const int* jnt_bodyid;    // (nj)
   const int* geom_bodyid;   // (ng)
   const int* dof_bodyid;    // (nv)
   const int* dof_jntid;     // (nv)
-  const int* dof_parent;    // (nv) parent dof, -1 at a root
+  const int* anc_pair;      // (npair) (dof << 16) | ancestor-or-self dof
   const int* dof_kind;      // (nv) 0 free translation, 1 local rotation,
                             //      2 hinge, 3 slide
   const int* dof_axis;      // (nv) axis index for kinds 0 and 1
@@ -62,6 +91,59 @@ struct PosOut {
   float *xpos, *xquat, *xmat, *xipos, *xanchor, *xaxis, *geom_xpos,
       *geom_xmat, *subtree_com, *cinert, *cdof, *qM, *qMinv, *qMhBinv;
 };
+
+// Offsets (in floats) of the per-env quantities in dynamic shared memory.
+// The pivot snapshots come first, so their addresses are compile-time
+// constants of the tile.  The walk's temporaries (Walk) live in the matrix
+// buffer, which nothing else touches before the walk is over.
+struct Layout {
+  int snap, qpos, xpos, xquat, xmat, xipos, scom, crb, anchor, axis, cdof,
+      frc, mat, scl, total;
+};
+
+struct Walk {   // offsets from Layout.mat
+  int pos2, quat2, anc, anc2, jframe, total;
+};
+
+__host__ __device__ inline Walk make_walk(const PosModel& m) {
+  Walk W;
+  int o = 0;
+  W.pos2 = o;   o += m.nb * 3;   // second pose buffer of the doubling rounds
+  W.quat2 = o;  o += m.nb * 4;
+  W.anc = o;    o += m.nb;       // (int) the body a pose is relative to
+  W.anc2 = o;   o += m.nb;
+  W.jframe = o; o += m.nj;       // (int) the body a joint's anchor is
+                                 // relative to; -1 - b: a free joint of b
+  W.total = o;
+  return W;
+}
+
+__host__ __device__ inline Layout make_layout(const PosModel& m, int cp,
+                                              int nmat) {
+  Layout L;
+  int o = 0;
+  // per matrix two buffers of: pivot row | 1 / pivot
+  L.snap = o;   o += nmat * 2 * (cp + 1);
+  L.qpos = o;   o += m.nq;
+  L.xpos = o;   o += m.nb * 3;
+  L.xquat = o;  o += m.nb * 4;
+  L.xmat = o;   o += m.nb * 9;
+  L.xipos = o;  o += m.nb * 3;
+  L.scom = o;   o += m.nb * 3;
+  L.crb = o;    o += m.nb * 36;
+  L.anchor = o; o += m.nj * 3;
+  L.axis = o;   o += m.nj * 3;
+  L.cdof = o;   o += m.nv * 6;
+  L.frc = o;    o += m.nv * 6;      // crb[body of dof] . cdof[dof]
+  // the walk's temporaries, then cinert (nb, 36), then the matrix (nv, nv)
+  int nmatbuf = m.nv * m.nv;
+  if (m.nb * 36 > nmatbuf) nmatbuf = m.nb * 36;
+  if (make_walk(m).total > nmatbuf) nmatbuf = make_walk(m).total;
+  L.mat = o;    o += nmatbuf;
+  L.scl = o;    o += 2 * m.nv;      // Jacobi scales of both matrices
+  L.total = o;
+  return L;
+}
 
 __device__ __forceinline__ void qmul(const float* a, const float* b,
                                      float* o) {
@@ -102,73 +184,118 @@ __device__ __forceinline__ void q2mat(const float* q, float* m) {
   m[8] = 1.0f - 2.0f * (x * x + y * y);
 }
 
-__global__ void position_kernel(PosModel m, const float* __restrict__ qpos_g,
-                                PosOut out) {
+// Writes pivot kn's snapshot of one matrix from the register tile a, on the
+// warp that owns row kn: A[kn,:] - e_kn (32 * TC floats) and 1 / A[kn,kn].
+template <int NW, int TR, int TC>
+__device__ __forceinline__ void publish_row(const float (&a)[TR][TC], int kn,
+                                            int warp, int lane, float* nsnap) {
+  if ((kn % NW) != warp) return;
+  const int in = kn / NW;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    if (i == in) {
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int s = lane + 32 * j;
+        const float x = a[i][j];
+        nsnap[s] = (s == kn) ? x - 1.0f : x;
+        if (s == kn) nsnap[32 * TC] = 1.0f / x;
+      }
+    }
+  }
+}
+
+// NW warps sweep one matrix; the block has NW * NMAT warps.
+// skip (profiling only, the outputs are then wrong): bit 0 leaves out the
+// pivot loop, bit 1 cuts the subtree sums to each body's own term, bit 2
+// leaves out the doubling rounds of the walk, bit 3 the assembly of qM.
+template <int NW, int TR, int TC, int NMAT>
+__global__ void __launch_bounds__(NW * NMAT * 32, 2)
+position_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
+                int skip) {
   extern __shared__ float sm[];
+  constexpr int CP = 32 * TC, NT = NW * NMAT * 32;
+  constexpr int SNAP = CP + 1;   // one pivot snapshot: row | 1 / pivot
   const int nb = m.nb, nj = m.nj, nv = m.nv, nq = m.nq, ng = m.ng;
   const int e = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
 
-  float* qpos = sm;                 // nq
-  float* xpos = qpos + nq;          // nb*3
-  float* xquat = xpos + nb * 3;     // nb*4
-  float* xmat = xquat + nb * 4;     // nb*9
-  float* xipos = xmat + nb * 9;     // nb*3
-  float* scom = xipos + nb * 3;     // nb*3
-  float* crb = scom + nb * 3;       // nb*36
-  float* anchor = crb + nb * 36;    // nj*3
-  float* axis = anchor + nj * 3;    // nj*3
-  float* cdof = axis + nj * 3;      // nv*6
-  float* A1 = cdof + nv * 6;        // nv*nv
-  float* A2 = A1 + nv * nv;         // nv*nv
-  float* col = A2 + nv * nv;        // 2*nv  pivot columns
-  float* row = col + 2 * nv;        // 2*nv  pivot rows
-  float* scl = row + 2 * nv;        // 2*nv  Jacobi scales
+  const Layout L = make_layout(m, CP, NMAT);
+  float* qpos = sm + L.qpos;
+  float* xpos = sm + L.xpos;
+  float* xquat = sm + L.xquat;
+  float* xmat = sm + L.xmat;
+  float* xipos = sm + L.xipos;
+  float* scom = sm + L.scom;
+  float* crb = sm + L.crb;
+  float* anchor = sm + L.anchor;
+  float* axis = sm + L.axis;
+  float* cdof = sm + L.cdof;
+  float* frc = sm + L.frc;
+  float* A = sm + L.mat;
+  float* cin = sm + L.mat;
+  float* scl = sm + L.scl;
+  float* snap = sm;   // Layout.snap is 0: constant addresses in the sweep
 
-  for (int i = tid; i < nq; i += nt) qpos[i] = qpos_g[(size_t)e * nq + i];
-  if (tid == 0) {
-    xpos[0] = xpos[1] = xpos[2] = 0.0f;
-    xquat[0] = 1.0f; xquat[1] = xquat[2] = xquat[3] = 0.0f;
-  }
+  const Walk W = make_walk(m);
+  float* pos2 = sm + L.mat + W.pos2;
+  float* quat2 = sm + L.mat + W.quat2;
+  int* anc1 = reinterpret_cast<int*>(sm + L.mat + W.anc);
+  int* anc2 = reinterpret_cast<int*>(sm + L.mat + W.anc2);
+  int* jframe = reinterpret_cast<int*>(sm + L.mat + W.jframe);
+
+  for (int i = tid; i < nq; i += NT) qpos[i] = qpos_g[(size_t)e * nq + i];
   __syncthreads();
 
-  // ---- world poses, one tree level at a time ----
-  for (int lv = 0; lv < m.nlevel; ++lv) {
-    const int lo = m.level_start[lv], hi = m.level_start[lv + 1];
-    for (int k = lo + tid; k < hi; k += nt) {
-      const int b = m.level_body[k];
-      const int p = m.body_parent[b];
-      float pos[3], quat[4], t[3], q[4];
-      qrot(&xquat[p * 4], &m.body_pos[b * 3], t);
-      for (int c = 0; c < 3; ++c) pos[c] = xpos[p * 3 + c] + t[c];
-      qmul(&xquat[p * 4], &m.body_quat[b * 4], quat);
+  // ---- each body's pose in its parent's frame (in the world's below a
+  // free joint), its joints' anchors and axes in that same frame ----
+  const int nrounds = (skip & 4) ? 0 : m.nrounds;
+  // the rounds alternate between the two pose buffers and end in xpos/xquat
+  float* pa = (nrounds & 1) ? pos2 : xpos;
+  float* qa4 = (nrounds & 1) ? quat2 : xquat;
+  int* aa = (nrounds & 1) ? anc2 : anc1;
+  float* pb = (nrounds & 1) ? xpos : pos2;
+  float* qb4 = (nrounds & 1) ? xquat : quat2;
+  int* ab = (nrounds & 1) ? anc1 : anc2;
+  for (int b = tid; b < nb; b += NT) {
+    float lp[3] = {0.0f, 0.0f, 0.0f}, lq[4] = {1.0f, 0.0f, 0.0f, 0.0f}, t[3];
+    int frame = 0;
+    if (b > 0) {
+      frame = m.body_parent[b];
+      for (int c = 0; c < 3; ++c) lp[c] = m.body_pos[b * 3 + c];
+      for (int c = 0; c < 4; ++c) lq[c] = m.body_quat[b * 4 + c];
       const int j0 = m.body_jntadr[b], j1 = j0 + m.body_jntnum[b];
       for (int j = j0; j < j1; ++j) {
         const int qa = m.jnt_qposadr[j];
         const int type = m.jnt_type[j];
         const float* jp = &m.jnt_pos[j * 3];
         const float* ja = &m.jnt_axis[j * 3];
-        if (type == 0) {  // free: resets the chain to world
-          for (int c = 0; c < 3; ++c) pos[c] = qpos[qa + c];
-          for (int c = 0; c < 4; ++c) quat[c] = qpos[qa + 3 + c];
-          qnormalize(quat);
+        if (type == 0) {  // free: the pose is the world's, whatever is above
+          for (int c = 0; c < 3; ++c) lp[c] = qpos[qa + c];
+          for (int c = 0; c < 4; ++c) lq[c] = qpos[qa + 3 + c];
+          qnormalize(lq);
+          frame = 0;
           for (int c = 0; c < 3; ++c) axis[j * 3 + c] = ja[c];
+          jframe[j] = -1 - b;   // its anchor is the body's final position
           continue;
         }
-        qnormalize(quat);  // frame before the joint
-        qrot(quat, jp, t);
-        for (int c = 0; c < 3; ++c) anchor[j * 3 + c] = pos[c] + t[c];
-        qrot(quat, ja, &axis[j * 3]);
-        const float scalar = qpos[qa] - m.qpos0[qa];
-        float pl[3];
+        qnormalize(lq);  // frame before the joint
+        qrot(lq, jp, t);
+        for (int c = 0; c < 3; ++c) anchor[j * 3 + c] = lp[c] + t[c];
+        qrot(lq, ja, &axis[j * 3]);
+        jframe[j] = frame;
+        float q[4], pl[3];
         if (type == 2) {  // slide
+          const float scalar = qpos[qa] - m.qpos0[qa];
           q[0] = 1.0f; q[1] = q[2] = q[3] = 0.0f;
           for (int c = 0; c < 3; ++c) pl[c] = ja[c] * scalar;
         } else {
           if (type == 3) {  // hinge
-            const float s = sinf(0.5f * scalar);
+            const float scalar = qpos[qa] - m.qpos0[qa];
+            const float sn = sinf(0.5f * scalar);
             q[0] = cosf(0.5f * scalar);
-            q[1] = ja[0] * s; q[2] = ja[1] * s; q[3] = ja[2] * s;
+            q[1] = ja[0] * sn; q[2] = ja[1] * sn; q[3] = ja[2] * sn;
           } else {  // ball
             for (int c = 0; c < 4; ++c) q[c] = qpos[qa + c];
             qnormalize(q);
@@ -176,30 +303,69 @@ __global__ void position_kernel(PosModel m, const float* __restrict__ qpos_g,
           qrot(q, jp, t);
           for (int c = 0; c < 3; ++c) pl[c] = jp[c] - t[c];
         }
-        qrot(quat, pl, t);
-        for (int c = 0; c < 3; ++c) pos[c] += t[c];
+        qrot(lq, pl, t);
+        for (int c = 0; c < 3; ++c) lp[c] += t[c];
         float nq4[4];
-        qmul(quat, q, nq4);
-        for (int c = 0; c < 4; ++c) quat[c] = nq4[c];
+        qmul(lq, q, nq4);
+        for (int c = 0; c < 4; ++c) lq[c] = nq4[c];
       }
-      qnormalize(quat);
-      for (int c = 0; c < 3; ++c) xpos[b * 3 + c] = pos[c];
-      for (int c = 0; c < 4; ++c) xquat[b * 4 + c] = quat[c];
-      for (int j = j0; j < j1; ++j)
-        if (m.jnt_type[j] == 0)
-          for (int c = 0; c < 3; ++c) anchor[j * 3 + c] = pos[c];
+      qnormalize(lq);
+    }
+    for (int c = 0; c < 3; ++c) pa[b * 3 + c] = lp[c];
+    for (int c = 0; c < 4; ++c) qa4[b * 4 + c] = lq[c];
+    aa[b] = frame;
+  }
+  __syncthreads();
+
+  // ---- world poses by pointer doubling: X[b] <- X[anc[b]] . X[b] ----
+  for (int r = 0; r < nrounds; ++r) {
+    for (int b = tid; b < nb; b += NT) {
+      const int a = aa[b];
+      float np[3], nq4[4];
+      if (a == 0) {   // already in the world frame
+        for (int c = 0; c < 3; ++c) np[c] = pa[b * 3 + c];
+        for (int c = 0; c < 4; ++c) nq4[c] = qa4[b * 4 + c];
+      } else {
+        float t[3];
+        qrot(&qa4[a * 4], &pa[b * 3], t);
+        for (int c = 0; c < 3; ++c) np[c] = pa[a * 3 + c] + t[c];
+        qmul(&qa4[a * 4], &qa4[b * 4], nq4);
+        qnormalize(nq4);
+      }
+      for (int c = 0; c < 3; ++c) pb[b * 3 + c] = np[c];
+      for (int c = 0; c < 4; ++c) qb4[b * 4 + c] = nq4[c];
+      ab[b] = a == 0 ? 0 : aa[a];
     }
     __syncthreads();
+    float* tp = pa; pa = pb; pb = tp;
+    float* tq = qa4; qa4 = qb4; qb4 = tq;
+    int* ta = aa; aa = ab; ab = ta;
+  }
+
+  // ---- joint anchors and axes into the world frame ----
+  for (int j = tid; j < nj; j += NT) {
+    const int f = jframe[j];
+    if (f < 0) {
+      for (int c = 0; c < 3; ++c) anchor[j * 3 + c] = xpos[(-1 - f) * 3 + c];
+    } else if (f > 0) {
+      float t[3], u[3];
+      qrot(&xquat[f * 4], &anchor[j * 3], t);
+      qrot(&xquat[f * 4], &axis[j * 3], u);
+      for (int c = 0; c < 3; ++c) {
+        anchor[j * 3 + c] = xpos[f * 3 + c] + t[c];
+        axis[j * 3 + c] = u[c];
+      }
+    }
   }
 
   // ---- per-body frames, geoms, joints ----
-  for (int b = tid; b < nb; b += nt) {
+  for (int b = tid; b < nb; b += NT) {
     q2mat(&xquat[b * 4], &xmat[b * 9]);
     float t[3];
     qrot(&xquat[b * 4], &m.body_ipos[b * 3], t);
     for (int c = 0; c < 3; ++c) xipos[b * 3 + c] = xpos[b * 3 + c] + t[c];
   }
-  for (int g = tid; g < ng; g += nt) {
+  for (int g = tid; g < ng; g += NT) {
     const int b = m.geom_bodyid[g];
     float t[3], q[4], mat[9];
     qrot(&xquat[b * 4], &m.geom_pos[g * 3], t);
@@ -210,30 +376,38 @@ __global__ void position_kernel(PosModel m, const float* __restrict__ qpos_g,
     float* gm = &out.geom_xmat[((size_t)e * ng + g) * 9];
     for (int c = 0; c < 9; ++c) gm[c] = mat[c];
   }
-  for (int i = tid; i < nj * 3; i += nt) {
+  __syncthreads();
+  for (int i = tid; i < nj * 3; i += NT) {
     out.xanchor[(size_t)e * nj * 3 + i] = anchor[i];
     out.xaxis[(size_t)e * nj * 3 + i] = axis[i];
   }
-  __syncthreads();
 
-  // ---- subtree com: reverse-order accumulation, one thread per axis ----
-  if (tid < 3) {
-    const int c = tid;
-    for (int b = 0; b < nb; ++b) scom[b * 3 + c] = m.body_mass[b] * xipos[b * 3 + c];
-    for (int b = nb - 1; b > 0; --b) scom[m.body_parent[b] * 3 + c] += scom[b * 3 + c];
-    for (int b = 0; b < nb; ++b) scom[b * 3 + c] /= m.subtree_mass[b];
+  // ---- subtree com: each (body, axis) sums its descendant list ----
+  for (int it = tid; it < nb * 3; it += NT) {
+    const int b = it / 3, c = it - b * 3;
+    const int lo = m.sub_start[b];
+    const int hi = (skip & 2) ? lo + 1 : m.sub_start[b + 1];
+    float acc = 0.0f;
+    for (int t = lo; t < hi; ++t) {
+      const int d = m.sub_body[t];
+      acc += m.body_mass[d] * xipos[d * 3 + c];
+    }
+    scom[it] = acc / m.subtree_mass[b];
   }
-  for (int i = tid; i < nb * 3; i += nt) {
+  for (int i = tid; i < nb * 3; i += NT) {
     out.xpos[(size_t)e * nb * 3 + i] = xpos[i];
     out.xipos[(size_t)e * nb * 3 + i] = xipos[i];
   }
-  for (int i = tid; i < nb * 4; i += nt) out.xquat[(size_t)e * nb * 4 + i] = xquat[i];
-  for (int i = tid; i < nb * 9; i += nt) out.xmat[(size_t)e * nb * 9 + i] = xmat[i];
+  for (int i = tid; i < nb * 4; i += NT)
+    out.xquat[(size_t)e * nb * 4 + i] = xquat[i];
+  for (int i = tid; i < nb * 9; i += NT)
+    out.xmat[(size_t)e * nb * 9 + i] = xmat[i];
   __syncthreads();
-  for (int i = tid; i < nb * 3; i += nt) out.subtree_com[(size_t)e * nb * 3 + i] = scom[i];
+  for (int i = tid; i < nb * 3; i += NT)
+    out.subtree_com[(size_t)e * nb * 3 + i] = scom[i];
 
   // ---- cinert about each body's root subtree com; cdof ----
-  for (int b = tid; b < nb; b += nt) {
+  for (int b = tid; b < nb; b += NT) {
     const float* org = &scom[m.body_rootid[b] * 3];
     float iq[4], R[9];
     qmul(&xquat[b * 4], &m.body_iquat[b * 4], iq);
@@ -244,11 +418,13 @@ __global__ void position_kernel(PosModel m, const float* __restrict__ qpos_g,
     for (int k = 0; k < 3; ++k) c[k] = xipos[b * 3 + k] - org[k];
     const float cc = c[0] * c[0] + c[1] * c[1] + c[2] * c[2];
     // skew(c) = [[0,-z,y],[z,0,-x],[-y,x,0]]
-    const float cx[9] = {0.0f, -c[2], c[1], c[2], 0.0f, -c[0], -c[1], c[0], 0.0f};
-    float* ci = &crb[b * 36];
+    const float cx[9] = {0.0f, -c[2], c[1], c[2], 0.0f, -c[0],
+                         -c[1], c[0], 0.0f};
+    float* ci = &cin[b * 36];
     for (int r = 0; r < 3; ++r) {
       for (int s = 0; s < 3; ++s) {
-        float ic = R[r * 3 + 0] * I[0] * R[s * 3 + 0] + R[r * 3 + 1] * I[1] * R[s * 3 + 1] +
+        float ic = R[r * 3 + 0] * I[0] * R[s * 3 + 0] +
+                   R[r * 3 + 1] * I[1] * R[s * 3 + 1] +
                    R[r * 3 + 2] * I[2] * R[s * 3 + 2];
         ci[r * 6 + s] = ic + mass * ((r == s ? cc : 0.0f) - c[r] * c[s]);
         ci[r * 6 + s + 3] = mass * cx[r * 3 + s];
@@ -256,10 +432,8 @@ __global__ void position_kernel(PosModel m, const float* __restrict__ qpos_g,
         ci[(r + 3) * 6 + s + 3] = (r == s) ? mass : 0.0f;
       }
     }
-    float* co = &out.cinert[((size_t)e * nb + b) * 36];
-    for (int k = 0; k < 36; ++k) co[k] = ci[k];
   }
-  for (int d = tid; d < nv; d += nt) {
+  for (int d = tid; d < nv; d += NT) {
     const int b = m.dof_bodyid[d], j = m.dof_jntid[d];
     const int kind = m.dof_kind[d], ax = m.dof_axis[d];
     float w[3] = {0.0f, 0.0f, 0.0f}, lin[3];
@@ -282,104 +456,212 @@ __global__ void position_kernel(PosModel m, const float* __restrict__ qpos_g,
     }
     float* cd = &cdof[d * 6];
     for (int k = 0; k < 3; ++k) { cd[k] = w[k]; cd[3 + k] = lin[k]; }
-    float* co = &out.cdof[((size_t)e * nv + d) * 6];
-    for (int k = 0; k < 6; ++k) co[k] = cd[k];
   }
   __syncthreads();
 
-  // ---- composite rigid bodies: reverse-order subtree sums ----
-  if (tid < 36) {
-    for (int b = nb - 1; b > 0; --b) crb[m.body_parent[b] * 36 + tid] += crb[b * 36 + tid];
+  // ---- composite rigid bodies: each (body, entry) sums its descendants ----
+  for (int i = tid; i < nb * 36; i += NT)
+    out.cinert[(size_t)e * nb * 36 + i] = cin[i];
+  for (int i = tid; i < nv * 6; i += NT)
+    out.cdof[(size_t)e * nv * 6 + i] = cdof[i];
+  for (int it = tid; it < nb * 36; it += NT) {
+    const int b = it / 36, k = it - b * 36;
+    const int lo = m.sub_start[b];
+    const int hi = (skip & 2) ? lo + 1 : m.sub_start[b + 1];
+    float acc = 0.0f;
+    for (int t = lo; t < hi; ++t) acc += cin[m.sub_body[t] * 36 + k];
+    crb[it] = acc;
   }
-  for (int i = tid; i < nv * nv; i += nt) A1[i] = 0.0f;
   __syncthreads();
 
-  // ---- qM: each dof walks its parent-dof chain ----
-  for (int i = tid; i < nv; i += nt) {
-    const float* C = &crb[m.dof_bodyid[i] * 36];
+  // ---- qM: crb . cdof per dof, then one entry per (dof, ancestor) pair ----
+  for (int i = tid; i < nv * nv; i += NT) A[i] = 0.0f;
+  for (int it = tid; it < nv * 6; it += NT) {
+    const int i = it / 6, r = it - i * 6;
+    const float* C = &crb[m.dof_bodyid[i] * 36 + r * 6];
     const float* cd = &cdof[i * 6];
-    float F[6];
-    for (int r = 0; r < 6; ++r) {
-      float acc = 0.0f;
-      for (int s = 0; s < 6; ++s) acc += C[r * 6 + s] * cd[s];
-      F[r] = acc;
-    }
-    for (int j = i; j >= 0; j = m.dof_parent[j]) {
-      const float* cj = &cdof[j * 6];
-      float v = 0.0f;
-      for (int r = 0; r < 6; ++r) v += F[r] * cj[r];
-      if (j == i) v += m.armature[i];
-      A1[i * nv + j] = v;
-      A1[j * nv + i] = v;
-    }
+    float acc = 0.0f;
+    for (int s = 0; s < 6; ++s) acc += C[s] * cd[s];
+    frc[it] = acc;
+  }
+  __syncthreads();
+  const int npair = (skip & 8) ? 0 : m.npair;
+  for (int t = tid; t < npair; t += NT) {
+    const int pk = m.anc_pair[t];
+    const int i = pk >> 16, j = pk & 0xffff;
+    const float* F = &frc[i * 6];
+    const float* cj = &cdof[j * 6];
+    float v = 0.0f;
+    for (int r = 0; r < 6; ++r) v += F[r] * cj[r];
+    if (j == i) v += m.armature[i];
+    A[i * nv + j] = v;
+    A[j * nv + i] = v;
   }
   __syncthreads();
 
-  // ---- write qM; set up the Jacobi-scaled sweep operands ----
-  const int nmat = m.damped ? 2 : 1;
-  for (int i = tid; i < nv * nv; i += nt) {
-    out.qM[(size_t)e * nv * nv + i] = A1[i];
-    if (m.damped) A2[i] = A1[i] + ((i / nv == i % nv) ? m.hB[i / nv] : 0.0f);
-  }
-  __syncthreads();
-  for (int i = tid; i < nmat * nv; i += nt) {
-    const float* A = (i < nv) ? A1 : A2;
-    const int r = i % nv;
-    scl[i] = rsqrtf(fmaxf(A[r * nv + r], 1e-30f));
-  }
-  __syncthreads();
-  for (int i = tid; i < nmat * nv * nv; i += nt) {
-    const int mi = i / (nv * nv), r = (i / nv) % nv, s = i % nv;
-    float* A = mi ? A2 : A1;
-    A[r * nv + s] *= scl[mi * nv + r] * scl[mi * nv + s];
+  // ---- write qM; Jacobi scales of qM and qM + h diag(B) ----
+  for (int i = tid; i < nv * nv; i += NT)
+    out.qM[(size_t)e * nv * nv + i] = A[i];
+  for (int i = tid; i < NMAT * nv; i += NT) {
+    const int mi = i >= nv, r = i - mi * nv;
+    const float d = A[r * nv + r] + (mi ? m.hB[r] : 0.0f);
+    scl[i] = rsqrtf(fmaxf(d, 1e-30f));
   }
   __syncthreads();
 
-  // ---- symmetric sweep: after all pivots A holds -A^-1 ----
-  for (int k = 0; k < nv; ++k) {
-    for (int i = tid; i < nmat * nv; i += nt) {
-      const int mi = i / nv, r = i % nv;
-      const float* A = mi ? A2 : A1;
-      col[i] = A[r * nv + k];
-      row[i] = A[k * nv + r];
+  // ---- my matrix, scaled, into my register tile ----
+  const int mi = (NMAT == 1) ? 0 : warp / NW;   // which matrix my warp sweeps
+  const int wr = warp - mi * NW;                // my warp among its NW
+  const float* myscl = scl + mi * nv;
+  float a[TR][TC];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int r = wr + i * NW, s = lane + 32 * j;
+      float x = 0.0f;
+      if (r < nv && s < nv) {
+        x = A[r * nv + s];
+        if (mi == 1 && r == s) x += m.hB[r];
+        x *= myscl[r] * myscl[s];
+      }
+      a[i][j] = x;
     }
-    __syncthreads();
-    for (int i = tid; i < nmat * nv * nv; i += nt) {
-      const int mi = i / (nv * nv), r = (i / nv) % nv, s = i % nv;
-      float* A = mi ? A2 : A1;
-      const float dinv = 1.0f / row[mi * nv + k];
-      const float v = col[mi * nv + r] - (r == k ? 1.0f : 0.0f);
-      const float w = (row[mi * nv + s] - (s == k ? 1.0f : 0.0f)) * dinv;
-      float a = A[r * nv + s] - v * w;
-      if (r == k && s == k) a -= 2.0f;  // the rank-1 form over-counts by 2
-      A[r * nv + s] = a;
-    }
-    __syncthreads();
   }
-  for (int i = tid; i < nmat * nv * nv; i += nt) {
-    const int mi = i / (nv * nv), r = (i / nv) % nv, s = i % nv;
-    const float* A = mi ? A2 : A1;
-    float* o = mi ? out.qMhBinv : out.qMinv;
-    o[(size_t)e * nv * nv + r * nv + s] =
-        -A[r * nv + s] * scl[mi * nv + r] * scl[mi * nv + s];
+
+  // ---- symmetric sweep: after all pivots a holds -A^-1 (scaled) ----
+  // for pivot k, with column and row k as they were before the update:
+  //   v = A[:,k] - e_k,  w = (A[k,:] - e_k) / A[k,k],
+  //   A <- A - v w^T,    A[k,k] <- A[k,k] - 2
+  // Column k of my rows lies in my own warp, in lane k % 32 of tile column
+  // k / 32: a shuffle brings it, and the pivots are walked in chunks of 32
+  // so that the tile column is a constant.  Row k comes through shared
+  // memory: the warp that owns row k+1 publishes it (and 1 / pivot) into
+  // the other buffer right after its update; everyone else only reads.
+  float* mysnap = snap + mi * 2 * SNAP;
+  publish_row<NW, TR, TC>(a, 0, wr, lane, mysnap);
+  __syncthreads();   // the last barrier of the whole block
+
+  const int npiv = (skip & 1) ? 0 : nv;
+#pragma unroll
+  for (int jk = 0; jk < TC; ++jk) {
+    const int kend = npiv < 32 * (jk + 1) ? npiv : 32 * (jk + 1);
+#pragma unroll 1
+    for (int k = 32 * jk; k < kend; ++k) {
+      const float* cur = mysnap + (k & 1) * SNAP;
+      const float dinv = cur[CP];
+      float v[TR], w[TC];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) w[j] = cur[lane + 32 * j] * dinv;
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        v[i] = __shfl_sync(0xffffffffu, a[i][jk], k & 31);
+      const bool myrow = (k % NW) == wr;
+      if (myrow) {
+        const int ik = k / NW;
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          if (i == ik) v[i] -= 1.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+#pragma unroll
+        for (int j = 0; j < TC; ++j) a[i][j] -= v[i] * w[j];
+      }
+      if (myrow && (k & 31) == lane) {
+        // the rank-1 form over-counts the pivot entry by 2
+        const int ik = k / NW;
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          if (i == ik) a[i][jk] -= 2.0f;
+      }
+      if (k + 1 < nv)
+        publish_row<NW, TR, TC>(a, k + 1, wr, lane,
+                                mysnap + ((k + 1) & 1) * SNAP);
+      if (NMAT == 1) {
+        __syncthreads();
+      } else {   // only the NW warps of this matrix
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + mi), "n"(NW * 32)
+                     : "memory");
+      }
+    }
+  }
+
+  // ---- sign and unscale; neighbouring lanes store neighbouring columns ----
+  // (the indices pass through an empty asm so that nothing computed for the
+  // tile load is kept alive, and spilled, across the sweep for reuse here)
+  int wr2 = wr, lane2 = lane;
+  asm volatile("" : "+r"(wr2), "+r"(lane2));
+  float* o = (mi ? out.qMhBinv : out.qMinv) + (size_t)e * nv * nv;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int r = wr2 + i * NW, s = lane2 + 32 * j;
+      if (r < nv && s < nv) o[r * nv + s] = -a[i][j] * myscl[r] * myscl[s];
+    }
   }
 }
 
-extern "C" size_t position_smem_bytes(PosModel m) {
-  const size_t n = (size_t)m.nq + (size_t)m.nb * (3 + 4 + 9 + 3 + 3 + 36) +
-                   (size_t)m.nj * 6 + (size_t)m.nv * 6 +
-                   2 * (size_t)m.nv * m.nv + 6 * (size_t)m.nv;
-  return n * sizeof(float);
+typedef void (*PositionKernel)(PosModel, const float*, PosOut, int);
+
+constexpr int kWarps = 8;   // warps that sweep one matrix
+
+// The instantiated tiles: (TR, TC) covers nv <= min(kWarps * TR, 32 * TC).
+// ops/position.py lists the same shapes (TILE_SHAPES) and chooses.
+static PositionKernel pick_kernel(int tr, int tc, int nmat) {
+#define TILE(TR, TC)                                          \
+  if (tr == TR && tc == TC)                                   \
+    return nmat == 2 ? position_kernel<kWarps, TR, TC, 2>     \
+                     : position_kernel<kWarps, TR, TC, 1>;
+  TILE(1, 1)
+  TILE(10, 3)
+  TILE(12, 3)
+#undef TILE
+  return nullptr;
+}
+
+static size_t smem_bytes(const PosModel& m, int tc) {
+  return (size_t)make_layout(m, 32 * tc, m.damped ? 2 : 1).total *
+         sizeof(float);
+}
+
+// out4 = registers per thread, local-memory bytes per thread, shared-memory
+// bytes per block, resident blocks per SM.
+extern "C" int position_resources(PosModel m, int tr, int tc, int* out4) {
+  const int nmat = m.damped ? 2 : 1;
+  PositionKernel fn = pick_kernel(tr, tc, nmat);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, (const void*)fn);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes(m, tc);
+  err = cudaFuncSetAttribute((const void*)fn,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, (const void*)fn, kWarps * nmat * 32, smem);
+  out4[0] = a.numRegs;
+  out4[1] = (int)a.localSizeBytes;
+  out4[2] = (int)(smem + a.sharedSizeBytes);
+  out4[3] = blocks;
+  return (int)err;
 }
 
 extern "C" int position_launch(PosModel m, const float* qpos, PosOut out,
-                               int batch, int threads, void* stream) {
-  const size_t smem = position_smem_bytes(m);
+                               int batch, int tr, int tc, void* stream,
+                               int skip) {
+  const int nmat = m.damped ? 2 : 1;
+  PositionKernel fn = pick_kernel(tr, tc, nmat);
+  if (!fn || m.nv > kWarps * tr || m.nv > 32 * tc || m.nv > 0xffff)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(m, tc);
   cudaError_t err = cudaFuncSetAttribute(
-      position_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  position_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(m, qpos,
-                                                                   out);
+  fn<<<batch, kWarps * nmat * 32, smem, (cudaStream_t)stream>>>(m, qpos, out,
+                                                                  skip);
   return (int)cudaGetLastError();
 }

@@ -83,6 +83,28 @@ extern "C" size_t sweep_smem_bytes(int n) {
   return ((size_t)n * n + 5 * (size_t)n) * sizeof(float);
 }
 
+// out4 = registers per thread, local-memory bytes per thread, shared-memory
+// bytes per block, resident blocks per SM.
+extern "C" int sweep_resources(int n, int threads, int* out4) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, sweep_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = sweep_smem_bytes(n);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_kernel,
+                                                      threads, smem);
+  out4[0] = a.numRegs;
+  out4[1] = (int)a.localSizeBytes;
+  out4[2] = (int)(smem + a.sharedSizeBytes);
+  out4[3] = blocks;
+  return (int)err;
+}
+
 extern "C" int sweep_launch(const float* a, float* out, int batch, int n,
                             int threads, void* stream) {
   const size_t smem = sweep_smem_bytes(n);

@@ -1,0 +1,167 @@
+"""Inputs, timing and per-stage split of the hand-written kernels A and B
+on one CUDA device, at the shapes the rollout gives them (the rodent twin,
+B envs).
+
+``stage_split`` times kernel A whole and with its sweeps, its subtree sums,
+the doubling rounds of its tree walk, its qM assembly or all four left out
+(the profiling ``skip`` bits of ``ops.position._launch``), and kernel B
+whole, with no line search, with no CG iteration and with its chain walks
+or matvecs left out (``ops.cg._launch``'s ``skip`` bits), and reads each
+kernel's registers, local-memory bytes, shared memory and resident blocks
+per SM.  ``check_cg`` is the yardstick that holds kernel B against its plain
+version.  ``python3 -m vnl_tpu_torch.profile_rollout`` prints it as one JSON
+line; ``chip_smoke.py`` takes its inputs and its timer from here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, queued: int = 0) -> float:
+    """Median device time of one call of ``fn`` (CUDA events).
+
+    ``queued = 0``: events around each single call; for work that takes
+    longer on the device than the host needs to enqueue it.
+    ``queued = n``: for one short kernel.  The stream is first held busy by
+    a spin kernel, so the n calls are enqueued while the device waits and
+    the time between the events is the kernels' own, not the host's time
+    between launches; returns the time over n."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(8_000_000)        # a few ms of device time
+        a.record()
+        for _ in range(max(queued, 1)):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / max(queued, 1))
+    return float(np.median(times))
+
+
+QUEUED = 8      # launches per timed batch of a hand-written kernel
+
+
+def random_states(m, batch, gen):
+    """Root near its rest pose with a random tilt, hinges uniform inside
+    their ranges."""
+    dev = m.device
+    qpos = m.qpos0.expand(batch, -1).clone()
+    qpos[:, :3] += 0.01 * torch.randn(batch, 3, generator=gen, device=dev)
+    quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev) + 0.2 * torch.randn(
+        batch, 4, generator=gen, device=dev)
+    qpos[:, 3:7] = quat / quat.norm(dim=-1, keepdim=True)
+    lo, hi = m.jnt_range[1:, 0], m.jnt_range[1:, 1]
+    u = torch.rand(batch, m.nq - 7, generator=gen, device=dev)
+    qpos[:, 7:] = lo + u * (hi - lo)
+    return qpos.contiguous()
+
+
+def contact_states(m, batch, gen):
+    """Kernel-A states pressed into the floor, through collision and
+    constraints, up to the CG solve's inputs: ((args, statics), number of
+    active contacts)."""
+    from vnl_tpu_torch.physics import actuation, forward, inertia, solver
+    qpos = random_states(m, batch, gen)
+    qpos[:, 2] -= 0.005
+    qvel = 0.5 * torch.randn(batch, m.nv, generator=gen, device=m.device)
+    d = forward.make_data(m, batch, qpos=qpos, qvel=qvel)
+    d, efc = forward.fwd_position(m, d)
+    d = forward.fwd_velocity(m, d)
+    _, qfrc_act, _ = actuation.actuation(m, d)
+    qacc_smooth = inertia.solve_m(d, d.qfrc_passive - d.qfrc_bias + qfrc_act)
+    active = int((d.contact_dist < 0).sum())
+    return solver.cg_inputs(m, d, efc, qacc_smooth,
+                            max(m.opt.iterations, 1)), active
+
+
+def check_cg(st, args, ker, tol: float = 1e-3, max_off: float = 0.005) -> dict:
+    """Holds kernel B's outputs ``ker`` against the plain version on CUDA
+    inputs ``args`` at rtol = atol = ``tol`` (the JAX tests' tolerance);
+    raises AssertionError on a mismatch, else returns the errors.
+
+    Every env is held to the plain version in float32.  The plain version
+    has a rounding error of its own, and the two can lie on either side of
+    the exact solve, each within the tolerance of it and a little more than
+    the tolerance apart.  An env that misses the float32 result is
+    therefore held, at the same tolerance, to the plain version run in
+    float64 on the same inputs, and no more than ``max_off`` of a batch
+    (none of a small one) may need that.  Returns per output the largest
+    |kernel - plain float32| over all envs, ``off_envs`` (envs that needed
+    the float64 result) and ``unstable_envs`` (envs on which the plain
+    version's own float32 and float64 results differ by more than the
+    tolerance)."""
+    from vnl_tpu_torch.ops import cg as cg_ops
+    plain = cg_ops.cg_plain(*args, statics=st)
+    ref = cg_ops.cg_plain(*[a.double() for a in args], statics=st)
+
+    def excess(got, want):      # per env, in units of atol + rtol |want|
+        e = (got - want).abs() / (tol + tol * want.abs())
+        return e.reshape(e.shape[0], -1).amax(1)
+
+    batch = ker[0].shape[0]
+    off = torch.zeros(batch, dtype=torch.bool, device=ker[0].device)
+    unstable = off.clone()
+    out = {}
+    for name, k, p, r in zip(("qacc", "qfrc_constraint", "con_f"), ker, plain,
+                             ref):
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"{name}: not finite")
+        miss = excess(k, p) > 1.0
+        far = miss & (excess(k.double(), r) > 1.0)
+        if bool(far.any()):
+            err = (k - p).abs().reshape(batch, -1).amax(1)
+            raise AssertionError(
+                f"{name}: max |err| {float(err[far].max()):.3e} beyond rtol = "
+                f"atol = {tol} of the plain version in float32 and in "
+                f"float64 on {int(far.sum())} envs of {batch}")
+        off |= miss
+        unstable |= excess(p.double(), r) > 1.0
+        out[name] = float((k - p).abs().max())
+    if int(off.sum()) > int(max_off * batch):
+        raise AssertionError(
+            f"{int(off.sum())} envs of {batch} beyond rtol = atol = {tol} of "
+            f"the plain version in float32; at most {int(max_off * batch)} "
+            "may be")
+    return dict(out, off_envs=int(off.sum()),
+                unstable_envs=int(unstable.sum()))
+
+
+def stage_split(m, batch: int = 1024, seed: int = 0) -> dict:
+    """Milliseconds per launch of kernels A and B with stages left out, and
+    their resources, for the model ``m`` on its CUDA device."""
+    from vnl_tpu_torch.ops import cg as cg_ops
+    from vnl_tpu_torch.ops import position as pos
+    gen = torch.Generator(device=m.device).manual_seed(seed)
+    qpos = random_states(m, batch, gen)
+    a = {name: time_ms(lambda: pos._launch(m, qpos, skip=skip), queued=QUEUED)
+         for name, skip in (("whole", 0), ("no_sweeps", 1),
+                            ("no_subtree_sums", 2), ("no_tree_walk", 4),
+                            ("no_qM_assembly", 8),
+                            ("none_of_them", 15))}
+    (args, st), _ = contact_states(m, batch, gen)
+
+    def solve(iters, ls_iters, skip=0):
+        s = cg_ops.CgStatics.make(st.nv, st.lim_dof, st.chain1, st.chain2,
+                                  iters, ls_iters)
+        return time_ms(lambda: cg_ops._launch(s, args, skip=skip),
+                       queued=QUEUED)
+
+    b = {"whole": solve(st.iters, st.ls_iters),
+         "no_line_search": solve(st.iters, 0),
+         "no_iterations": solve(0, st.ls_iters),
+         "no_jv_chains": solve(st.iters, st.ls_iters, 1),
+         "no_jtf_chains": solve(st.iters, st.ls_iters, 2),
+         "no_matvecs": solve(st.iters, st.ls_iters, 4),
+         "none_of_them": solve(st.iters, st.ls_iters, 7)}
+    return dict(batch=batch,
+                position_ms=a, position_resources=pos.resources(m),
+                cg_ms=b, cg_resources=cg_ops.resources(st, m.device),
+                cg_shape=dict(iters=st.iters, ls_iters=st.ls_iters,
+                              nv=st.nv, ncon=st.ncon, nlimit=st.nlimit))

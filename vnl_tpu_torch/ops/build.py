@@ -91,3 +91,20 @@ def check(err: int, what: str) -> None:
     """Raises on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def resources(name: str, *args) -> dict:
+    """What ``<name>_resources`` of a kernel library reports for one launch
+    shape (``args``: the model struct and the ints its launch takes):
+    registers per thread, local-memory bytes per thread (non-zero means a
+    stack frame or spills), shared memory per block and the resident blocks
+    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = getattr(load(name), f"{name}_resources")
+    fn.argtypes = ([type(a) if isinstance(a, ctypes.Structure)
+                    else ctypes.c_int for a in args]
+                   + [ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    check(fn(*args, out), f"{name}_resources")
+    return dict(regs=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3])

@@ -23,7 +23,7 @@ import torch
 from vnl_tpu_torch.ops import build, launch_counts
 from vnl_tpu_torch.physics import constraint, solver
 
-THREADS = 128
+THREADS = 256       # kThreads of the source: one block per env
 _STATICS: dict = {}
 
 
@@ -93,10 +93,38 @@ _IN = ("qM", "qMinv", "x0", "cdof", "g36", "lim_sign", "lim_aref", "lim_D",
        "con_mu", "con_aref", "con_D")
 
 
+_TABLES = ("lim_dof", "lim_of_dof", "side_start", "side_dof", "dof_start",
+           "dof_side")
+
+
 class CgModel(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in ("nv", "ncon", "nlimit", "iters",
                                             "ls_iters")] + \
-               [("lim_dof", ctypes.c_void_p), ("chain", ctypes.c_void_p)]
+               [(n, ctypes.c_void_p) for n in _TABLES]
+
+
+def kernel_tables(st: CgStatics) -> dict:
+    """Static int tables of kernel B.  Sides are numbered sd * ncon + c with
+    sd 0 for chain2 (added) and sd 1 for chain1 (subtracted):
+      lim_of_dof (nv): the limit row of each dof, -1 where it has none;
+      side_start, side_dof: per side, the dofs of its chain (CSR);
+      dof_start, dof_side: per dof, the sides whose chain holds it (CSR),
+        ordered by contact and, within one contact, chain2 before chain1.
+    """
+    lim_of_dof = np.full(st.nv, -1, np.int32)
+    lim_of_dof[st.lim_dof] = np.arange(st.nlimit)
+    if len(np.unique(st.lim_dof)) != st.nlimit:
+        raise ValueError("kernel B takes at most one limit row per dof")
+    sides = np.concatenate([st.chain2, st.chain1]) != 0     # (2 ncon, nv)
+    side_start = np.concatenate([[0], np.cumsum(sides.sum(1))])
+    side_dof = np.nonzero(sides)[1]
+    # per dof: contacts ascending, chain2 before chain1
+    by_contact = sides.reshape(2, st.ncon, st.nv).transpose(2, 1, 0)
+    dof_start = np.concatenate([[0], np.cumsum(sides.sum(0))])
+    d, c, sd = np.nonzero(by_contact)
+    return dict(lim_dof=st.lim_dof, lim_of_dof=lim_of_dof,
+                side_start=side_start, side_dof=side_dof,
+                dof_start=dof_start, dof_side=sd * st.ncon + c)
 
 
 class CgIn(ctypes.Structure):
@@ -110,16 +138,26 @@ class CgOut(ctypes.Structure):
 def _device_model(st: CgStatics, device: torch.device) -> CgModel:
     key = str(device)
     if key not in st.cache:
-        lim = torch.as_tensor(st.lim_dof, dtype=torch.int32, device=device)
-        chain = torch.as_tensor(np.stack([st.chain2, st.chain1]),
-                                dtype=torch.float32, device=device)
+        held = {n: torch.as_tensor(np.asarray(a, np.int32), device=device)
+                for n, a in kernel_tables(st).items()}
         st.cache[key] = (CgModel(st.nv, st.ncon, st.nlimit, st.iters,
-                                 st.ls_iters, lim.data_ptr(),
-                                 chain.data_ptr()), (lim, chain))
+                                 st.ls_iters,
+                                 *[held[n].data_ptr() for n in _TABLES]),
+                         held)
     return st.cache[key][0]
 
 
-def _launch(st: CgStatics, args):
+def resources(st: CgStatics, device="cuda") -> dict:
+    """Registers per thread, local (spill) bytes, shared memory per block
+    and resident blocks per SM of kernel B for this constraint system."""
+    return dict(build.resources("cg", _device_model(st, torch.device(device))),
+                threads=THREADS)
+
+
+def _launch(st: CgStatics, args, skip: int = 0):
+    """Launches kernel B.  ``skip`` is for profiling only (the outputs are
+    then wrong): bit 0 empties the chain lists of J v, bit 1 those of
+    J^T f, bit 2 leaves out the matvecs' inner loops."""
     B = args[0].shape[0]
     nv, nc, nl = st.nv, st.ncon, st.nlimit
     shapes = [(nv, nv), (nv, nv), (nv,), (nv, 6), (36, nc), (nl,), (nl,),
@@ -134,10 +172,13 @@ def _launch(st: CgStatics, args):
     if nl == 0 or nc == 0:
         raise ValueError("kernel B needs at least one limit row and one "
                          "contact")
+    if nv > 32 * (THREADS // 32 - 1):
+        raise ValueError(f"kernel B gives every dof a thread of its "
+                         f"{THREADS} and keeps a warp free: nv = {nv}")
     lib = build.load("cg")
     fn = lib.cg_launch
-    fn.argtypes = [CgModel, CgIn, CgOut, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [CgModel, CgIn, CgOut, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int]
     fn.restype = ctypes.c_int
     qacc = torch.empty(B, nv, device=dev)
     qfrc = torch.empty(B, nv, device=dev)
@@ -145,7 +186,7 @@ def _launch(st: CgStatics, args):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_device_model(st, dev), CgIn(*[a.data_ptr() for a in args]),
              CgOut(qacc.data_ptr(), qfrc.data_ptr(), con_f.data_ptr()), B,
-             THREADS, stream)
+             stream, skip)
     build.check(err, "kernel B (cg)")
     launch_counts["cg"] += 1
     return qacc, qfrc, con_f

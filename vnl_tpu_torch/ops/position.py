@@ -21,7 +21,12 @@ from vnl_tpu_torch.ops.linalg import inv_spd
 from vnl_tpu_torch.physics import inertia, kinematics
 from vnl_tpu_torch.physics.model import Model
 
-THREADS = 256
+WARPS = 8           # warps that sweep one matrix (kWarps of the source; one
+                    # block per env, two matrices when damped)
+# (TR, TC) register tiles the kernel source instantiates: thread
+# (warp, lane) of a matrix owns its rows warp + i * WARPS, i < TR, and its
+# columns lane + 32 * j, j < TC.
+TILE_SHAPES = ((1, 1), (10, 3), (12, 3))
 OUTPUT_NAMES = ("xpos", "xquat", "xmat", "xipos", "xanchor", "xaxis",
                 "geom_xpos", "geom_xmat", "subtree_com", "cinert", "cdof",
                 "qM", "qMinv", "qMhBinv")
@@ -59,9 +64,9 @@ def position_plain(m: Model, qpos: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 _INT_TABLES = ("body_parent", "body_jntadr", "body_jntnum", "body_rootid",
-               "level_start", "level_body", "jnt_type", "jnt_qposadr",
-               "jnt_bodyid", "geom_bodyid", "dof_bodyid", "dof_jntid",
-               "dof_parent", "dof_kind", "dof_axis")
+               "sub_start", "sub_body",
+               "jnt_type", "jnt_qposadr", "geom_bodyid", "dof_bodyid",
+               "dof_jntid", "anc_pair", "dof_kind", "dof_axis")
 _FLOAT_TABLES = ("qpos0", "body_pos", "body_quat", "body_ipos", "body_iquat",
                  "body_mass", "body_inertia", "subtree_mass", "jnt_pos",
                  "jnt_axis", "geom_pos", "geom_quat", "armature", "hB")
@@ -69,7 +74,7 @@ _FLOAT_TABLES = ("qpos0", "body_pos", "body_quat", "body_ipos", "body_iquat",
 
 class PosModel(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in ("nb", "nj", "nv", "nq", "ng",
-                                             "damped", "nlevel")]
+                                             "damped", "nrounds", "npair")]
                 + [(n, ctypes.c_void_p) for n in _INT_TABLES + _FLOAT_TABLES])
 
 
@@ -77,19 +82,27 @@ class PosOut(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in OUTPUT_NAMES]
 
 
-def dof_parent(m: Model) -> np.ndarray:
-    """Parent dof of each dof (-1 at a root), from the ancestor mask."""
-    anc = np.asarray(m.dof_ancestor_mask, bool)
-    parent = np.full(m.nv, -1, np.int32)
-    for i in range(m.nv):
-        prev = np.nonzero(anc[i, :i])[0]
-        if len(prev):
-            parent[i] = prev[-1]
-            chain = anc[parent[i]].copy()
-            chain[i] = True
-            if not np.array_equal(chain, anc[i]):
-                raise ValueError(f"dof {i}: ancestry is not a chain")
-    return parent
+def tile_shape(nv: int):
+    """The smallest instantiated (TR, TC) tile that covers an nv x nv
+    matrix; ValueError where none does."""
+    for tr, tc in TILE_SHAPES:
+        if WARPS * tr >= nv and 32 * tc >= nv:
+            return tr, tc
+    raise ValueError(f"kernel A has no register tile for nv = {nv} "
+                     f"(instantiated for {WARPS} warps: {TILE_SHAPES})")
+
+
+def tile_map(nv: int, tr: int, tc: int) -> np.ndarray:
+    """(threads, TR * TC, 2) int array: the (row, column) of every tile
+    slot of every thread of the WARPS warps that sweep one matrix, -1
+    where the slot lies outside the matrix."""
+    tid = np.arange(WARPS * 32)
+    r = (tid // 32)[:, None, None] + WARPS * np.arange(tr)[None, :, None]
+    s = (tid % 32)[:, None, None] + 32 * np.arange(tc)[None, None, :]
+    r, s = np.broadcast_arrays(r, s)
+    rs = np.stack([r, s], -1).reshape(len(tid), tr * tc, 2)
+    rs[(rs >= nv).any(-1)] = -1
+    return rs
 
 
 def kernel_tables(m: Model) -> dict:
@@ -100,23 +113,32 @@ def kernel_tables(m: Model) -> dict:
     depth = np.zeros(m.nbody, np.int64)
     for b in range(1, m.nbody):
         depth[b] = depth[parent[b]] + 1
-    order = np.argsort(depth[1:], kind="stable") + 1
-    nlevel = int(depth.max())
-    level_start = np.searchsorted(depth[order], np.arange(1, nlevel + 2))
+    # pointer doubling reaches the world from depth d in ceil(log2(d)) rounds
+    nrounds = int(np.ceil(np.log2(max(int(depth.max()), 1))))
     is_free_t, is_local_rot, is_hinge, is_slide, axis_idx = \
         kinematics.dof_tables(m)
     kind = np.select([is_free_t, is_local_rot, is_hinge, is_slide],
                      [0, 1, 2, 3], -1)
     mass = m.body_mass.cpu().numpy().astype(np.float64)
-    sub_m = np.maximum(np.asarray(m.body_subtree_mask) @ mass, 1e-12)
+    sub = np.asarray(m.body_subtree_mask, bool)     # [b, d]: d in subtree(b)
+    sub_m = np.maximum(sub @ mass, 1e-12)
+    if not sub.diagonal().all() or np.tril(sub, -1).any():
+        raise ValueError("a body's subtree must hold itself and only later "
+                         "bodies")
+    sub_start = np.concatenate([[0], np.cumsum(sub.sum(1))])
+    sub_body = np.nonzero(sub)[1]                   # row-major: ascending
+    anc = np.asarray(m.dof_ancestor_mask, bool)     # [i, j]: j above-or-is i
+    if np.triu(anc, 1).any() or m.nv > 0xffff:
+        raise ValueError("dof ancestors must precede their dofs")
+    pi, pj = np.nonzero(anc)
+    anc_pair = (pi << 16) | pj
     damping = m.dof_damping.cpu().numpy().astype(np.float64)
     ints = dict(
         body_parent=parent, body_jntadr=m.body_jntadr,
         body_jntnum=m.body_jntnum, body_rootid=m.body_rootid,
-        level_start=level_start, level_body=order, jnt_type=m.jnt_type,
-        jnt_qposadr=m.jnt_qposadr, jnt_bodyid=m.jnt_bodyid,
+        sub_start=sub_start, sub_body=sub_body, jnt_type=m.jnt_type, jnt_qposadr=m.jnt_qposadr,
         geom_bodyid=m.geom_bodyid, dof_bodyid=m.dof_bodyid,
-        dof_jntid=m.dof_jntid, dof_parent=dof_parent(m), dof_kind=kind,
+        dof_jntid=m.dof_jntid, anc_pair=anc_pair, dof_kind=kind,
         dof_axis=axis_idx)
     floats = dict(
         qpos0=m.qpos0, body_pos=m.body_pos, body_quat=m.body_quat,
@@ -125,7 +147,7 @@ def kernel_tables(m: Model) -> dict:
         jnt_pos=m.jnt_pos, jnt_axis=m.jnt_axis, geom_pos=m.geom_pos,
         geom_quat=m.geom_quat, armature=m.dof_armature,
         hB=m.opt.timestep * damping)
-    return dict(nlevel=nlevel, ints=ints, floats=floats)
+    return dict(nrounds=nrounds, depth=depth, ints=ints, floats=floats)
 
 
 def _device_model(m: Model, device: torch.device):
@@ -143,23 +165,36 @@ def _device_model(m: Model, device: torch.device):
                                       device=device).contiguous()
         st = PosModel(nb=m.nbody, nj=m.njnt, nv=m.nv, nq=m.nq, ng=m.ngeom,
                       damped=int(inertia.needs_implicit_damping(m)),
-                      nlevel=t["nlevel"],
+                      nrounds=t["nrounds"], npair=len(t["ints"]["anc_pair"]),
                       **{n: held[n].data_ptr() for n in held})
         m.cache[key] = (st, held)
     return m.cache[key][0]
 
 
-def _launch(m: Model, qpos: torch.Tensor):
+def resources(m: Model) -> dict:
+    """Registers per thread, local (spill) bytes, shared memory per block
+    and resident blocks per SM of kernel A for this model."""
+    tr, tc = tile_shape(m.nv)
+    nmat = 2 if inertia.needs_implicit_damping(m) else 1
+    return dict(build.resources("position", _device_model(m, m.device),
+                                tr, tc), threads=32 * WARPS * nmat)
+
+
+def _launch(m: Model, qpos: torch.Tensor, skip: int = 0):
+    """Launches kernel A.  ``skip`` is for profiling only (the outputs are
+    then wrong): bit 0 leaves out the sweeps, bit 1 the subtree sums, bit
+    2 the doubling rounds of the tree walk, bit 3 the assembly of qM."""
     if qpos.dtype != torch.float32 or qpos.dim() != 2 or \
             qpos.shape[1] != m.nq or not qpos.is_contiguous():
         raise ValueError(f"kernel A takes contiguous float32 (B, {m.nq}) "
                          f"qpos, got {qpos.dtype} {tuple(qpos.shape)}")
     if qpos.device != m.device:
         raise ValueError(f"qpos on {qpos.device}, model on {m.device}")
+    tr, tc = tile_shape(m.nv)
     lib = build.load("position")
     fn = lib.position_launch
     fn.argtypes = [PosModel, ctypes.c_void_p, PosOut, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     B = qpos.shape[0]
     outs = [torch.empty((B,) + s, device=qpos.device, dtype=torch.float32)
@@ -168,7 +203,8 @@ def _launch(m: Model, qpos: torch.Tensor):
     ptrs += [ptrs[-1]] * (len(OUTPUT_NAMES) - len(ptrs))
     st = _device_model(m, qpos.device)
     stream = torch.cuda.current_stream(qpos.device).cuda_stream
-    build.check(fn(st, qpos.data_ptr(), PosOut(*ptrs), B, THREADS, stream),
+    build.check(fn(st, qpos.data_ptr(), PosOut(*ptrs), B, tr, tc,
+                   stream, skip),
                 "kernel A (position)")
     launch_counts["position"] += 1
     return tuple(outs)

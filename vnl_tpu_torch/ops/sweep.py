@@ -50,6 +50,12 @@ def _check(a: torch.Tensor) -> None:
                          f"matrices, got {a.dtype} {tuple(a.shape)}")
 
 
+def resources(n: int) -> dict:
+    """Registers per thread, local (spill) bytes, shared memory per block
+    and resident blocks per SM of kernel C for n x n matrices."""
+    return dict(build.resources("sweep", n, THREADS), threads=THREADS)
+
+
 def _launch(a: torch.Tensor) -> torch.Tensor:
     _check(a)
     n = a.shape[-1]

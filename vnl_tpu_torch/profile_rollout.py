@@ -7,14 +7,19 @@ step, device time per kernel group (kernel A, kernel B, the rest), the
 number of kernel launches per control step, and the device's busy and
 idle shares (sum of kernel times over the wall time of the same work
 without the profiler, whose own overhead inflates the wall time; kernels
-of one stream do not overlap).
+of one stream do not overlap).  Before that it prints, as one JSON line
+{"kernel_stages": ...}, where kernels A and B spend their time at B envs
+(kernel_bench.stage_split: each kernel whole and with stages left out) and
+what each takes of an SM (registers, spill bytes, shared memory, resident
+blocks), after the compiler's own resource report.
 
 Usage (from the repo root, on the machine with the card):
-  python3 -m vnl_tpu_torch.profile_rollout
+  python3 -m vnl_tpu_torch.profile_rollout [--stages-only]
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import sys
@@ -50,13 +55,32 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
 
-    from vnl_tpu_torch import compat
+    p = argparse.ArgumentParser()
+    p.add_argument("--stages-only", action="store_true",
+                   help="print the kernels' stage split and stop")
+    args = p.parse_args()
+
+    from vnl_tpu_torch import compat, kernel_bench
+    from vnl_tpu_torch.bench import gpu_name_and_power_limit
     from vnl_tpu_torch.envs import make_twin_env
     from vnl_tpu_torch.models import make_inference_fn
     from vnl_tpu_torch.ops import build
+    from vnl_tpu_torch.physics import forward
     from vnl_tpu_torch.training import generate_unroll
 
     build.build_all()
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[nvcc {name}] {line.strip()}")
+    forward.pin_fp32()
+    stages = kernel_bench.stage_split(
+        compat.model_from_numpy(compat.TWIN_MODEL, device="cuda"), BATCH)
+    print(json.dumps({"kernel_stages": dict(
+        stages, card=gpu_name_and_power_limit())}), flush=True)
+    if args.stages_only:
+        return 0
+
     env = make_twin_env(device="cuda")
     policy = make_inference_fn(compat.policy_from_numpy(
         compat.KEEPER_POLICY, device="cuda"))(deterministic=False)
