@@ -17,8 +17,13 @@ Phases, in order; any failure exits non-zero:
      policy, sampling from a seeded generator; A and B must each launch at
      least 100 times in it, and every qpos, qvel and reward must be finite;
   5. kernel C (SPD sweep inverse) against its plain version on the
-     (2048, 73, 73) stack [qM, qM + h diag(B)] of 1024 twin states and on a
-     (12, 29, 29) batch, with torch.linalg.inv timed beside it;
+     (2, 1024, 73, 73) stack [qM, qM + h diag(B)] of 1024 twin states
+     (the register route, tile (10, 3), which must not spill) and on SPD
+     batches of 3 and 12 matrices (the JAX package's sweep-test inputs)
+     for every other tile the repo's scenes use (n = 7, 29, 64, 96) and for
+     the shared-memory route (n = 97, 120), bitwise symmetric and the same
+     bits from two launches; prints C's route, tile, registers, spills,
+     blocks per SM, time, its bound and torch.linalg.inv's time;
   6. training at full width: train(...) with the arguments of
      vnl_tpu_torch/bench.py (1024 envs, networks (1024, 1024), a shortened
      episode) for four training steps with the fused position stage
@@ -78,13 +83,16 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
-def spill_bytes(name: str) -> int:
-    """Largest spill reported by ptxas for any kernel of one source."""
+def spill_bytes(name: str, kernel: str = "") -> int:
+    """Largest spill reported by ptxas for the kernels of one source whose
+    mangled name contains ``kernel`` (all of them by default)."""
     import re
     from vnl_tpu_torch.ops import build
-    return max([int(x) for x in re.findall(
-        r"(\d+) bytes spill (?:stores|loads)", build.BUILD_LOG.get(name, ""))]
-        or [0])
+    found = re.findall(r"Function properties for (\S+)\n[^\n]*?(\d+) bytes "
+                       r"spill stores, (\d+) bytes spill loads",
+                       build.BUILD_LOG.get(name, ""))
+    return max([max(int(st), int(ld)) for fn, st, ld in found
+                if kernel in fn] or [0])
 
 
 def check_position(m, qpos, ker, plain):
@@ -253,44 +261,76 @@ def spd_batch(batch, n, gen):
     return (0.5 * (a + a.transpose(1, 2))).contiguous()
 
 
-def phase_kernel_c(m, gen):
-    from vnl_tpu_torch.kernel_bench import QUEUED, random_states, time_ms
-    from vnl_tpu_torch.ops import position as pos
+# Kernel C's other inputs, beside the twin's pair (n = 73, tile (10, 3)):
+# n = 7 (box_chain, ball_arm: tile (2, 1)), 29 (tile (4, 1)), 64 ((8, 2)),
+# 96 (star96: (12, 3)) and the shared-memory route at 97 and 120, each at
+# an odd and an even count of matrices.
+SWEEP_NS = (7, 29, 64, 96, 97, 120)
+SWEEP_COUNTS = (3, 12)
+
+
+def check_sweep(name, a, errs):
+    """Kernel C on ``a`` against the plain version at rtol 5e-3 and atol
+    1e-4 of the inverse's scale, |A X - I| < 5e-3, bitwise symmetric, the
+    same bits from two launches; records the errors in ``errs``."""
     from vnl_tpu_torch.ops import sweep
-    qM = pos._launch(m, random_states(m, BATCH, gen))[11]
-    hB = torch.diag(m.opt.timestep * m.dof_damping)
-    pair = torch.stack([qM, qM + hB])               # (2, B, nv, nv)
+    plain = sweep.inv_spd_sweep_plain(a)
+    scale = float(plain.abs().max())
+    eye = torch.eye(a.shape[-1], device="cuda")
+    ker = sweep._launch(a)
+    errs[name] = check_close(name, ker, plain, 5e-3, 1e-4 * scale)
+    resid = float((a @ ker - eye).abs().max())
+    if not resid < 5e-3:
+        raise AssertionError(f"{name}: |A X - I| = {resid:.3e}")
+    errs[name + "_resid"] = resid
+    if not torch.equal(ker, ker.transpose(-1, -2)):
+        raise AssertionError(f"{name}: output not bitwise symmetric")
+    same_bits(name, [ker], [sweep._launch(a)])
+
+
+def phase_kernel_c(m, gen):
+    from vnl_tpu_torch.kernel_bench import (QUEUED, random_states, time_ms,
+                                            twin_pair)
+    from vnl_tpu_torch.ops import sweep
+    route, res = sweep.route(m.nv), sweep.resources(m.nv)
+    # the main path's kernel: a register tile with no spills (ptxas's
+    # report where this run built it) and no local memory at all
+    own_spill = spill_bytes("sweep", "sweep_tile_kernelILi{}ELi{}EE".format(
+        *route.tile))
+    if route.kind != "register" or own_spill or res["local_bytes"]:
+        raise AssertionError(f"kernel C for n = {m.nv}: {route}, {own_spill} "
+                             f"spill bytes, {res['local_bytes']} local bytes")
+    pair = twin_pair(m, random_states(m, BATCH, gen))   # (2, B, nv, nv)
     errs = {}
-    for name, a in (("twin_pair", pair), ("spd_12x29", spd_batch(12, 29,
-                                                                 gen))):
-        ker = sweep._launch(a)
-        plain = sweep.inv_spd_sweep_plain(a)
-        torch.cuda.synchronize()
-        scale = float(plain.abs().max())
-        errs[name] = check_close(name, ker, plain, 5e-3, 1e-4 * scale)
-        resid = float((a @ ker - torch.eye(a.shape[-1], device="cuda")
-                       ).abs().max())
-        if not resid < 5e-3:
-            raise AssertionError(f"{name}: |A X - I| = {resid:.3e}")
-        errs[name + "_resid"] = resid
-        errs[name + "_asym"] = float((ker - ker.transpose(-1, -2)
-                                      ).abs().max())
+    check_sweep("twin_pair", pair, errs)
+    for n in SWEEP_NS:
+        for count in SWEEP_COUNTS:
+            check_sweep(f"spd_{count}x{n}", spd_batch(count, n, gen), errs)
     ms = time_ms(lambda: sweep._launch(pair), queued=QUEUED)
+    wide = spd_batch(pair.numel() // m.nv ** 2, 120, gen)
+    shared_ms = time_ms(lambda: sweep._launch(wide), queued=QUEUED)
     plain_ms = time_ms(lambda: sweep.inv_spd_sweep_plain(pair), reps=5)
     flat = pair.reshape(-1, m.nv, m.nv)
     library_ms = time_ms(lambda: torch.linalg.inv(flat), reps=10)
     nmat = flat.shape[0]
     b_ms, b_by = bound_ms(2 * nmat * m.nv ** 2 * 4, nmat * 2 * m.nv ** 3)
-    res = sweep.resources(m.nv)
-    return dict(name="sweep", route="cuda",
-                source="vnl_tpu_torch/csrc/sweep.cu",
-                replaces="vnl_tpu/ops/pallas_linalg.py:49",
-                max_abs_err=errs["twin_pair"], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                regs=res["regs"], smem_bytes=res["smem_bytes"],
-                blocks_per_sm=res["blocks_per_sm"],
-                local_bytes=res["local_bytes"],
-                spill_bytes=spill_bytes("sweep")), errs
+    row = dict(name="sweep", route="cuda",
+               source="vnl_tpu_torch/csrc/sweep.cu",
+               replaces="vnl_tpu/ops/pallas_linalg.py:49",
+               max_abs_err=errs["twin_pair"], ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+               regs=res["regs"], smem_bytes=res["smem_bytes"],
+               blocks_per_sm=res["blocks_per_sm"],
+               local_bytes=res["local_bytes"],
+               # the largest over every tile and both routes
+               spill_bytes=spill_bytes("sweep"),
+               kernel_route=route.kind, tile=list(route.tile),
+               # the shared-memory route on as many matrices of n = 120
+               shared_route_ms_n120=shared_ms)
+    print(json.dumps({"kernel_c": {k: row[k] for k in (
+        "kernel_route", "tile", "regs", "spill_bytes", "blocks_per_sm", "ms",
+        "bound_ms", "library_ms", "shared_route_ms_n120")}}), flush=True)
+    return row, errs
 
 
 def phase_training(fused: bool, steps: int):

@@ -207,29 +207,47 @@ def test_cg_kernel_wide_system(model):
     _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
 
 
+# every register tile (n = 1 and 16, 29, 64, 73, 96) and the shared-memory
+# route (97, 120), odd and even matrix counts, and the twin's stacked pair
+SWEEP_CASES = [(n, count) for n in (1, 16, 29, 64, 73, 96, 97, 120)
+               for count in (3, 12, 2048)] + [("twin", B)]
+
+
+def _spd(count, n):
+    """SPD matrices with uneven row scales, made as the JAX package's sweep
+    test makes them (tests/test_pallas_ops.py _spd_batch)."""
+    gen = torch.Generator(device="cuda").manual_seed(n * 10_000 + count)
+    scale = 0.05 + 1.95 * torch.rand(count, 1, n, generator=gen,
+                                     device="cuda")
+    L = torch.randn(count, n, n, generator=gen, device="cuda") * scale
+    a = L @ L.transpose(1, 2) + 0.5 * torch.eye(n, device="cuda")
+    return (0.5 * (a + a.transpose(1, 2))).contiguous()
+
+
 @pytest.mark.cuda
-def test_sweep_kernel_matches_plain(model):
-    """Kernel C on the twin's stacked pair [qM, qM + h diag(B)], on a
-    small odd n and on n = 120 (more than the default 48 KB of shared
-    memory): the plain version at rtol 5e-3 / atol 1e-4 of the
-    inverse's scale, |A X - I| < 5e-3, one launch per call."""
-    qpos, _ = _states(model)
-    qM = pos_ops.position(model, qpos)[11]
-    hB = torch.diag(model.opt.timestep * model.dof_damping)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    L = torch.randn(12, 29, 29, generator=gen, device="cuda")
-    small = L @ L.transpose(1, 2) + 0.5 * torch.eye(29, device="cuda")
-    L = torch.randn(3, 120, 120, generator=gen, device="cuda")
-    wide = L @ L.transpose(1, 2) + 0.5 * torch.eye(120, device="cuda")
-    for a in (torch.stack([qM, qM + hB], 1), small, wide):
-        before = launch_counts["sweep"]
-        got = sweep_ops.inv_spd_sweep(a)
-        assert launch_counts["sweep"] == before + 1
-        want = sweep_ops.inv_spd_sweep_plain(a)
-        _close(got, want, 5e-3, 1e-4 * float(want.abs().max()), "inverse")
-        eye = torch.eye(a.shape[-1], device="cuda")
-        assert float((a @ got - eye).abs().max()) < 5e-3
-        assert torch.equal(got, got.transpose(-1, -2))
+@pytest.mark.parametrize("n,count", SWEEP_CASES)
+def test_sweep_kernel_matches_plain(model, n, count):
+    """Kernel C on its route for n: the plain version at rtol 5e-3 / atol
+    1e-4 of the inverse's scale, |A X - I| < 5e-3, a bitwise symmetric
+    output, one launch per call and the same bits from two launches."""
+    if n == "twin":                     # [qM, qM + h diag(B)], (B, 2, 73, 73)
+        qpos, _ = _states(model)
+        qM = pos_ops.position(model, qpos)[11]
+        hB = torch.diag(model.opt.timestep * model.dof_damping)
+        a = torch.stack([qM, qM + hB], 1)
+    else:
+        a = _spd(count, n)
+    route = sweep_ops.route(a.shape[-1])
+    want = sweep_ops.inv_spd_sweep_plain(a)
+    eye = torch.eye(a.shape[-1], device="cuda")
+    before = launch_counts["sweep"]
+    got = sweep_ops.inv_spd_sweep(a)
+    assert launch_counts["sweep"] == before + 1
+    assert torch.equal(got, sweep_ops.inv_spd_sweep(a))
+    _close(got, want, 5e-3, 1e-4 * float(want.abs().max()),
+           f"inverse, {route}")
+    assert float((a @ got - eye).abs().max()) < 5e-3
+    assert torch.equal(got, got.transpose(-1, -2))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """Kernel C's plain version (vnl_tpu_torch/ops/sweep.py inv_spd_sweep_plain,
-which a CPU tensor takes) against the Pallas sweep of vnl_tpu in interpret
-mode and against float64 numpy, and refine_inv against vnl_tpu's.
+which a CPU tensor takes) and the two-pivot form its register route runs
+(inv_spd_sweep_pairs_plain) against the Pallas sweep of vnl_tpu in
+interpret mode and against float64 numpy, the kernel's route by n, and
+refine_inv against vnl_tpu's.
 
 Tolerances: 2e-5 of the inverse's largest entry, as
 tests/test_pallas_ops.py holds the TPU kernel to numpy; the twin's mass
@@ -49,6 +51,62 @@ def test_sweep_plain_matches_pallas_and_numpy():
     np.testing.assert_allclose(_scaled(got, scale), _scaled(pallas, scale),
                                atol=2e-5)
     np.testing.assert_array_equal(got, np.transpose(got, (0, 2, 1)))
+
+
+@pytest.mark.parametrize("n", [29, 30])
+def test_sweep_pairs_plain_matches_pallas_and_numpy(n):
+    """Two pivots a step, an odd n ending on a single pivot."""
+    a = _spd_batch(np.random.default_rng(n), 12, n)
+    got = sweep.inv_spd_sweep_pairs_plain(torch.as_tensor(a)).numpy()
+    pallas = inv_spd_lanes(jnp.asarray(a), block=4, interpret=True)
+    want = np.linalg.inv(a.astype(np.float64))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(_scaled(got, scale), want / scale, atol=2e-5)
+    np.testing.assert_allclose(_scaled(got, scale), _scaled(pallas, scale),
+                               atol=2e-5)
+    np.testing.assert_array_equal(got, np.transpose(got, (0, 2, 1)))
+
+
+def test_sweep_pairs_plain_inverts_twin_mass_matrices():
+    pair = _twin_pair()
+    got = sweep.inv_spd_sweep_pairs_plain(pair)
+    one = sweep.inv_spd_sweep_plain(pair)
+    assert float((pair @ got - torch.eye(73)).abs().max()) < 5e-3
+    for k in range(2):
+        scale = float(one[k].abs().max())
+        np.testing.assert_allclose(got[k].numpy(), one[k].numpy(), rtol=5e-3,
+                                   atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("n,kind,tile", [
+    (1, "register", (2, 1)), (2, "register", (2, 1)),
+    (8, "register", (2, 1)), (16, "register", (2, 1)),
+    (17, "register", (4, 1)), (29, "register", (4, 1)),
+    (32, "register", (4, 1)), (33, "register", (8, 2)),
+    (64, "register", (8, 2)), (73, "register", (10, 3)),
+    (80, "register", (10, 3)), (81, "register", (12, 3)),
+    (96, "register", (12, 3)), (97, "shared", (0, 0)),
+    (238, "shared", (0, 0))])
+def test_sweep_route(n, kind, tile):
+    """The smallest instantiated tile that covers n (8 warps: n <= 8 TR and
+    n <= 32 TC; TR even, the pivots go in pairs), else the shared-memory
+    route up to 238."""
+    r = sweep.route(n)
+    assert (r.kind, r.tile) == (kind, tile)
+    assert all(tr % 2 == 0 for tr, _ in sweep.TILE_SHAPES)
+    if kind == "register":
+        smaller = [(tr, tc) for tr, tc in sweep.TILE_SHAPES
+                   if tr * tc < tile[0] * tile[1]]
+        assert all(8 * tr < n or 32 * tc < n for tr, tc in smaller)
+    else:
+        assert all(8 * tr < n or 32 * tc < n for tr, tc in sweep.TILE_SHAPES)
+
+
+@pytest.mark.parametrize("n", [0, 239, 300])
+def test_sweep_route_rejects(n):
+    with pytest.raises(ValueError):
+        sweep.route(n)
+    assert sweep.MAX_N == 238
 
 
 @pytest.mark.parametrize("layout", ["pair_first", "batch_first"])

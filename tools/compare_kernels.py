@@ -1,13 +1,15 @@
-"""Times kernels A and B of two trees of the port on one CUDA device, in
+"""Times kernels A, B and C of two trees of the port on one CUDA device, in
 turns (old, new, new, old), at the shapes the rollout gives them (the
-rodent twin, 1024 envs), and prints one JSON line with every turn and the
+rodent twin, 1024 envs; for C the (2, 1024, 73, 73) stack
+[qM, qM + h diag(B)]), and prints one JSON line with every turn and the
 median of each tree's turns.
 
 Each turn is a process of its own that imports ``vnl_tpu_torch`` from one
-tree, builds that tree's kernels and times ``ops.position._launch`` and
-``ops.cg._launch`` on inputs made from the same seed.  ``--old`` names a
-directory that holds an earlier ``vnl_tpu_torch`` and ``chip_smoke.py``
-(for example ``git archive <commit> | tar -x -C build/parent``).
+tree, builds that tree's kernels and times ``ops.position._launch``,
+``ops.cg._launch`` and ``ops.sweep._launch`` on inputs made from the same
+seed.  ``--old`` names a directory that holds an earlier ``vnl_tpu_torch``
+and ``chip_smoke.py`` (for example
+``git archive <commit> | tar -x -C build/parent``).
 
   python3 tools/compare_kernels.py --old build/parent
 """
@@ -40,17 +42,21 @@ def time_tree(root: str) -> dict:
     from vnl_tpu_torch import compat
     from vnl_tpu_torch.ops import cg as cg_ops
     from vnl_tpu_torch.ops import position as pos
+    from vnl_tpu_torch.ops import sweep
     from vnl_tpu_torch.physics import forward
     forward.pin_fp32()
     m = compat.model_from_numpy(compat.TWIN_MODEL, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     qpos = kb.random_states(m, BATCH, gen)
     (args, st), _ = kb.contact_states(m, BATCH, gen)
+    pair = kb.twin_pair(m, qpos)
     return dict(root=os.path.relpath(root, ROOT),
-                position_ms=kb.time_ms(lambda: pos._launch(m, qpos), reps=50,
-                                       queued=kb.QUEUED),
-                cg_ms=kb.time_ms(lambda: cg_ops._launch(st, args), reps=50,
-                                 queued=kb.QUEUED))
+               position_ms=kb.time_ms(lambda: pos._launch(m, qpos), reps=50,
+                                      queued=kb.QUEUED),
+               cg_ms=kb.time_ms(lambda: cg_ops._launch(st, args), reps=50,
+                                queued=kb.QUEUED),
+               sweep_ms=kb.time_ms(lambda: sweep._launch(pair), reps=50,
+                                   queued=kb.QUEUED))
 
 
 def main() -> int:
@@ -84,11 +90,9 @@ def main() -> int:
     def med(tree, key):
         return statistics.median(t[key] for t in turns if t["tree"] == tree)
 
-    print(json.dumps(dict(
-        card=smi, batch=BATCH, turns=turns,
-        position_ms=dict(old=med("old", "position_ms"),
-                         new=med("new", "position_ms")),
-        cg_ms=dict(old=med("old", "cg_ms"), new=med("new", "cg_ms")))))
+    print(json.dumps(dict(card=smi, batch=BATCH, turns=turns, **{
+        k: dict(old=med("old", k), new=med("new", k))
+        for k in ("position_ms", "cg_ms", "sweep_ms")})))
     return 0
 
 

@@ -1,14 +1,15 @@
-"""Inputs, timing and per-stage split of the hand-written kernels A and B
-on one CUDA device, at the shapes the rollout gives them (the rodent twin,
-B envs).
+"""Inputs, timing and per-stage split of the hand-written kernels A, B and
+C on one CUDA device, at the shapes the rollout gives them (the rodent
+twin, B envs; for C the stacked pair [qM, qM + h diag(B)] of B envs).
 
 ``stage_split`` times kernel A whole and with its sweeps, its subtree sums,
 the doubling rounds of its tree walk, its qM assembly or all four left out
 (the profiling ``skip`` bits of ``ops.position._launch``), and kernel B
 whole, with no line search, with no CG iteration and with its chain walks
-or matvecs left out (``ops.cg._launch``'s ``skip`` bits), and reads each
-kernel's registers, local-memory bytes, shared memory and resident blocks
-per SM.  ``check_cg`` is the yardstick that holds kernel B against its plain
+or matvecs left out (``ops.cg._launch``'s ``skip`` bits), and kernel C
+whole, with its pivot loop left out and with loads and stores only
+(``ops.sweep._launch``'s ``skip`` bits), and reads each kernel's
+registers, local-memory bytes, shared memory and resident blocks per SM.  ``check_cg`` is the yardstick that holds kernel B against its plain
 version.  ``python3 -m vnl_tpu_torch.profile_rollout`` prints it as one JSON
 line; ``chip_smoke.py`` takes its inputs and its timer from here.
 """
@@ -133,11 +134,22 @@ def check_cg(st, args, ker, tol: float = 1e-3, max_off: float = 0.005) -> dict:
                 unstable_envs=int(unstable.sum()))
 
 
+def twin_pair(m, qpos):
+    """Kernel C's input on the unfused path: the stacked pair
+    [qM, qM + h diag(B)] (2, B, nv, nv) at the states ``qpos``, with qM
+    from kernel A."""
+    from vnl_tpu_torch.ops import position as pos
+    qM = pos._launch(m, qpos)[11]
+    hB = torch.diag(m.opt.timestep * m.dof_damping)
+    return torch.stack([qM, qM + hB]).contiguous()
+
+
 def stage_split(m, batch: int = 1024, seed: int = 0) -> dict:
-    """Milliseconds per launch of kernels A and B with stages left out, and
-    their resources, for the model ``m`` on its CUDA device."""
+    """Milliseconds per launch of kernels A, B and C with stages left out,
+    and their resources, for the model ``m`` on its CUDA device."""
     from vnl_tpu_torch.ops import cg as cg_ops
     from vnl_tpu_torch.ops import position as pos
+    from vnl_tpu_torch.ops import sweep
     gen = torch.Generator(device=m.device).manual_seed(seed)
     qpos = random_states(m, batch, gen)
     a = {name: time_ms(lambda: pos._launch(m, qpos, skip=skip), queued=QUEUED)
@@ -153,6 +165,10 @@ def stage_split(m, batch: int = 1024, seed: int = 0) -> dict:
         return time_ms(lambda: cg_ops._launch(s, args, skip=skip),
                        queued=QUEUED)
 
+    pair = twin_pair(m, qpos)
+    c = {name: time_ms(lambda: sweep._launch(pair, skip=skip), queued=QUEUED)
+         for name, skip in (("whole", 0), ("no_pivots", 1),
+                            ("load_store_only", 3))}
     b = {"whole": solve(st.iters, st.ls_iters),
          "no_line_search": solve(st.iters, 0),
          "no_iterations": solve(0, st.ls_iters),
@@ -164,4 +180,7 @@ def stage_split(m, batch: int = 1024, seed: int = 0) -> dict:
                 position_ms=a, position_resources=pos.resources(m),
                 cg_ms=b, cg_resources=cg_ops.resources(st, m.device),
                 cg_shape=dict(iters=st.iters, ls_iters=st.ls_iters,
-                              nv=st.nv, ncon=st.ncon, nlimit=st.nlimit))
+                              nv=st.nv, ncon=st.ncon, nlimit=st.nlimit),
+                sweep_ms=c,
+                sweep_resources=sweep.resources(m.nv),
+                sweep_shape=list(pair.shape))

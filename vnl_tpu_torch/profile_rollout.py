@@ -8,7 +8,7 @@ number of kernel launches per control step, and the device's busy and
 idle shares (sum of kernel times over the wall time of the same work
 without the profiler, whose own overhead inflates the wall time; kernels
 of one stream do not overlap).  Before that it prints, as one JSON line
-{"kernel_stages": ...}, where kernels A and B spend their time at B envs
+{"kernel_stages": ...}, where kernels A, B and C spend their time at B envs
 (kernel_bench.stage_split: each kernel whole and with stages left out) and
 what each takes of an SM (registers, spill bytes, shared memory, resident
 blocks), after the compiler's own resource report.
@@ -42,7 +42,7 @@ def device_groups(prof):
         name = ev.name
         key = ("kernel A (position)" if "position_kernel" in name else
                "kernel B (cg)" if "cg_kernel" in name else
-               "kernel C (sweep)" if "sweep_kernel" in name else
+               "kernel C (sweep)" if "sweep_" in name and "kernel" in name else
                "memcpy/memset" if "memcpy" in name.lower()
                or "memset" in name.lower() else "other torch kernels")
         groups[key] += ev.time_range.end - ev.time_range.start   # us
