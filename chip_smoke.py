@@ -29,7 +29,23 @@ Phases, in order; any failure exits non-zero:
      episode) for four training steps with the fused position stage
      (kernel A) and two with the unfused one (kernel C), an evaluation
      after every interval; losses must be finite, parameters must move,
-     and the launch counts must be those of the chosen stage.
+     and the launch counts must be those of the chosen stage;
+  7. the command line: the port's MJCF compiler builds the twin from
+     rodent_twin.xml on the card (every field equal to
+     rodent_twin_model.npz, bit for bit); `python -m vnl_tpu_torch.train`'s
+     main() with vnl_tpu_torch/configs/rodent_twin_config.yaml and the
+     config's own hyperparameters (128 envs, batch 32 x 32 minibatches,
+     unroll 20, 16 passes, networks (1024, 1024)), the twin's clip as a
+     pickle, episode length 30 and one interval of 2 training steps
+     (40,960 env steps); then resumed from its last checkpoint to
+     num_timesteps 61,440 (it must start at 40,960 with Adam's step count
+     going on, end with finite losses and write finished params that load
+     through compat.policy_from_numpy); then the multi-clip env (5 clips
+     of 50 frames) with adaptive clip weights for one interval (weights
+     summing to 1, every clip drawn).  Kernels A and B must launch at
+     least once per physics substep of each run, C never.  Prints a
+     {"cli": ...} line: env-steps/s of each run, the compile, checkpoint
+     save and restore, and eval-callback seconds.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with each kernel's launches, time per
 launch, plain time, bound, error, registers, shared memory and resident
@@ -377,6 +393,194 @@ def phase_training(fused: bool, steps: int):
     return counts, rep
 
 
+TWIN_XML = os.path.join(ROOT, "vnl_tpu_torch", "assets", "rodent_twin.xml")
+CLI_DIR = os.path.join(ROOT, "build", "cli_smoke")      # gitignored
+CLI_SETTINGS = ["train.episode_length=30", "train.num_timesteps=40960",
+                "train.eval_every=20480"]
+
+
+def check_twin_compile(device) -> float:
+    """Compiles rodent_twin.xml with the port's compiler onto the card and
+    holds every field against rodent_twin_model.npz, bit for bit; returns
+    the compile's seconds (XML to a Model on the card)."""
+    import dataclasses
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.envs import compile_rodent
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = compile_rodent(TWIN_XML, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with np.load(compat.TWIN_MODEL) as z:
+        want = {k: z[k] for k in z.files}
+    seen = set()
+    for f in dataclasses.fields(m):
+        v = getattr(m, f.name)
+        if f.name == "cache":
+            continue
+        if f.name == "opt":
+            for g in dataclasses.fields(v):
+                w = want[f"opt_{g.name}"]
+                if not np.array_equal(np.asarray(getattr(v, g.name)), w):
+                    raise AssertionError(f"opt.{g.name} differs")
+                seen.add(f"opt_{g.name}")
+            continue
+        w = want[f.name]
+        seen.add(f.name)
+        if torch.is_tensor(v):
+            if v.device.type != torch.device(device).type:
+                raise AssertionError(f"{f.name} is not on {device}")
+            got = v.cpu().numpy()
+            same = got.dtype == w.dtype and got.shape == w.shape and \
+                got.tobytes() == w.tobytes()
+        elif isinstance(v, np.ndarray):
+            same = v.dtype == w.dtype and v.tobytes() == w.tobytes()
+        else:
+            same = np.array_equal(np.asarray(v), w)
+        if not same:
+            raise AssertionError(f"compiled field {f.name} differs from "
+                                 "rodent_twin_model.npz")
+    if seen != set(want):
+        raise AssertionError(f"fields not compared: {set(want) ^ seen}")
+    return seconds
+
+
+def _records(log_dir):
+    """The metrics records of the one run logged in ``log_dir``."""
+    import glob
+    (path,) = glob.glob(os.path.join(log_dir, "metrics_*.jsonl"))
+    with open(path) as f:
+        return [json.loads(line) for line in f][1:]
+
+
+def check_cli_launches(tag, counts, substeps):
+    """A and B at least once per physics substep of a run, C never."""
+    a, b, c = (counts.get(k, 0) for k in ("position", "cg", "sweep"))
+    if a < substeps or b < substeps or c:
+        raise AssertionError(f"{tag}: launches A {a}, B {b}, C {c} for "
+                             f"{substeps} physics substeps")
+
+
+def run_cli(tag, extra, device, expect_from=0):
+    """main() of the command line with the twin config; returns (report,
+    launch counts, run dir).  Checks the run's env steps, finite losses,
+    and A and B launched at least once per physics substep."""
+    import glob
+    from vnl_tpu_torch import train as cli
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    log_dir = os.path.join(CLI_DIR, tag, "logs")
+    args = [f"env_config={ROOT}/vnl_tpu_torch/configs/"
+            "rodent_twin_config.yaml",
+            f"env.clip_path={CLI_DIR}/twin_clip.p",
+            f"env.env_args.mjcf_path={TWIN_XML}",
+            f"train.checkpoint_dir={CLI_DIR}/{tag}/ck",
+            f"train.log_dir={log_dir}"] + CLI_SETTINGS + extra
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, metrics = cli.main(args, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    (run,) = glob.glob(os.path.join(CLI_DIR, tag, "ck", "*"))
+    recs = _records(log_dir)
+    evals = [r for r in recs if "eval/episode_reward" in r]
+    diags = [r for r in recs if "diag/rtrunk_mean" in r]
+    last = evals[-1]
+    bad = [k for k, v in last.items() if k.startswith("training/")
+           and not np.isfinite(v)]
+    if bad or "training/total_loss" not in last:
+        raise AssertionError(f"{tag}: non-finite or missing losses {bad}")
+    trained = last["_step"] - expect_from
+    # physics substeps: the training envs (128) by control step, then each
+    # evaluation (128 envs) and each eval-callback episode (1 env)
+    substeps = 5 * (trained // 128 + 30 * (len(evals) + len(diags)))
+    check_cli_launches(tag, counts, substeps)
+    return dict(env_steps_per_s=last["training/sps"],
+                rollout_s_per_training_step=last[
+                    "training/rollout_s_per_step"],
+                sgd_s_per_training_step=last["training/sgd_s_per_step"],
+                first_step=evals[0]["_step"], last_step=last["_step"],
+                eval_s=last["eval/epoch_eval_time"],
+                eval_callback_s=[d["diag/eval_callback_s"] for d in diags],
+                substeps=substeps, wall_s=wall,
+                total_loss=last["training/total_loss"]), counts, run, last
+
+
+def phase_cli(device):
+    """Phase 7; returns (report, launch counts of each run)."""
+    import shutil
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.data import save_clip_pickle
+    from vnl_tpu_torch.envs import RodentMultiClipTracking
+    from vnl_tpu_torch.training import checkpoint
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    rep = {"compile_s": check_twin_compile(device)}
+    save_clip_pickle(os.path.join(CLI_DIR, "twin_clip.p"),
+                     compat.clip_from_numpy(compat.TWIN_CLIP, device="cpu"))
+
+    rep["train"], c1, run, _ = run_cli("train", [], device)
+    ckpt = checkpoint.latest_checkpoint(os.path.join(run, "state"))
+    if not ckpt or not ckpt.endswith("/40960.npz"):
+        raise AssertionError(f"final checkpoint {ckpt}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = checkpoint.restore(ckpt, device=device)
+    torch.cuda.synchronize()
+    rep["restore_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.save(os.path.join(CLI_DIR, "timing"), state.env_steps, state)
+    rep["save_s"] = time.perf_counter() - t0
+    updates = state.optimizer_state["step"]
+    if state.env_steps != 40960 or updates != 2 * 16 * 32:
+        raise AssertionError(f"checkpoint: env_steps {state.env_steps}, "
+                             f"Adam step {updates}")
+
+    rep["resume"], c2, run2, _ = run_cli(
+        "resume", ["train.num_timesteps=61440",
+                   f"train.restore_checkpoint={ckpt}"], device,
+        expect_from=40960)
+    resumed = checkpoint.restore(checkpoint.latest_checkpoint(
+        os.path.join(run2, "state")), device="cpu")
+    if (rep["resume"]["last_step"], resumed.env_steps,
+            resumed.optimizer_state["step"]) != (81920, 81920, 2 * updates):
+        raise AssertionError(
+            f"resumed run: last step {rep['resume']['last_step']}, "
+            f"checkpoint {resumed.env_steps}, Adam step "
+            f"{resumed.optimizer_state['step']} (from {updates})")
+    finished = compat.policy_from_numpy(os.path.join(run2, "finished.npz"),
+                                        device=device)
+    if finished.encoder.proj_0.out_features != 256:
+        raise AssertionError("finished params: unexpected widths")
+
+    drawn = []
+    extra_info = RodentMultiClipTracking._extra_reset_info
+
+    def record_draws(self, *a, **kw):
+        out = extra_info(self, *a, **kw)
+        drawn.append(out["clip_id"].cpu())
+        return out
+
+    RodentMultiClipTracking._extra_reset_info = record_draws
+    try:
+        rep["multiclip"], c3, _, last = run_cli(
+            "multiclip", ["env.name=rodent_multiclip",
+                          "env.env_args.clip_length=50",
+                          "train.adaptive_clip_weights=True"], device)
+    finally:
+        RodentMultiClipTracking._extra_reset_info = extra_info
+    w = [last[f"training/clip_weight_{c}"] for c in range(5)]
+    counts = np.bincount(torch.cat(drawn).numpy(), minlength=5)
+    if abs(sum(w) - 1) > 1e-5 or len(counts) != 5 or counts.min() < 1:
+        raise AssertionError(f"multi-clip: weights {w}, draws {counts}")
+    rep["multiclip"].update(clip_weights=w, clip_draws=counts.tolist())
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"cli": rep}), flush=True)
+    return rep, (c1, c2, c3)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script drives "
@@ -411,11 +615,13 @@ def main() -> int:
     row_c, errs_c = phase_kernel_c(m, gen)
     counts_fused, info["training_fused"] = phase_training(True, steps=2)
     counts_unfused, info["training_unfused"] = phase_training(False, steps=1)
+    info["cli"], counts_cli = phase_cli(device)
     kernels = [row_a, row_b, row_c]
     for row in kernels:
         # summed over the paths, each counted from zero on its own
         row["launches"] = sum(c.get(row["name"], 0) for c in
-                              (counts, counts_fused, counts_unfused))
+                              (counts, counts_fused, counts_unfused)
+                              + counts_cli)
         if row["launches"] < 1:
             raise AssertionError(f"kernel {row['name']} never launched on "
                                  "the main paths")

@@ -21,6 +21,13 @@ vnl_tpu_torch/assets/:
 Run on the CPU from the repo root:  python tools/export_torch_assets.py
 The output is deterministic (fixed seeds), so a rerun rewrites the same
 files.
+
+  python tools/export_torch_assets.py --checkpoint <jax_ckpt> <out.npz>
+
+flattens a JAX full-state checkpoint (an Orbax directory or a .msgpack
+file) into the port's checkpoint layout, which
+``vnl_tpu_torch.training.checkpoint.restore`` and the ``train.
+restore_checkpoint`` option of ``python -m vnl_tpu_torch.train`` read.
 """
 
 from __future__ import annotations
@@ -224,6 +231,54 @@ def model_to_numpy(m) -> dict:
     return out
 
 
+def _flat(tree, prefix: str, out: dict) -> dict:
+    """``prefix.a.b.c`` keys of the leaves of a nested dict."""
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            _flat(v, key, out)
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def training_state_to_numpy(state) -> dict:
+    """A JAX TrainingState (the trainer's, or the nested dict an Orbax or
+    msgpack restore without a target gives) in the port's checkpoint layout
+    (vnl_tpu_torch/compat.py): ``params.<net>.<flax key>``,
+    ``optimizer.count`` and ``optimizer.{mu,nu}.<net>.<flax key>`` (optax
+    adam's ScaleByAdamState; the schedule's count is the same number),
+    ``normalizer.<field>`` and ``env_steps``."""
+    from flax import serialization
+    if not isinstance(state, dict):
+        state = serialization.to_state_dict(state)
+    opt = state["optimizer_state"]
+    adam = opt[0] if isinstance(opt, (list, tuple)) else opt["0"]
+    out = {"env_steps": np.asarray(int(np.asarray(state["env_steps"])),
+                                   np.int64),
+           "optimizer.count": np.asarray(int(np.asarray(adam["count"])),
+                                         np.int64)}
+    for net in ("policy", "value"):
+        _flat(state["params"][net]["params"], f"params.{net}", out)
+        for moment in ("mu", "nu"):
+            _flat(adam[moment][net]["params"], f"optimizer.{moment}.{net}",
+                  out)
+    _flat(state["normalizer_params"], "normalizer", out)
+    return {k: (v.astype(np.float32) if v.dtype.kind == "f" else v)
+            for k, v in out.items()}
+
+
+def read_jax_checkpoint(path: str) -> dict:
+    """A JAX full-state checkpoint (an Orbax directory or a ``.msgpack``
+    file of vnl_tpu/training/checkpoint.py) as a nested dict."""
+    if os.path.isdir(path):
+        import orbax.checkpoint as ocp
+        return ocp.StandardCheckpointer().restore(os.path.abspath(path))
+    from flax import serialization
+    with open(path, "rb") as f:
+        return serialization.msgpack_restore(f.read())
+
+
 def twin_clip_qpos(m, n_frames: int = 250, dt: float = 0.02) -> np.ndarray:
     """A smooth (n_frames, nq) trajectory: slow forward drift and yaw sway
     of the root, each hinge a sinusoid inside its range."""
@@ -251,17 +306,8 @@ def keeper_policy() -> dict:
     directory), flattened to ``a.b.c`` keys."""
     import orbax.checkpoint as ocp
     state = ocp.StandardCheckpointer().restore(KEEPER)
-    out = {}
-
-    def walk(tree, prefix):
-        for k, v in tree.items():
-            key = f"{prefix}.{k}" if prefix else k
-            if isinstance(v, dict):
-                walk(v, key)
-            else:
-                out[key] = np.asarray(v, np.float32)
-
-    walk(state["params"]["policy"]["params"], "")
+    out = {k: v.astype(np.float32) for k, v in
+           _flat(state["params"]["policy"]["params"], "", {}).items()}
     out["normalizer.mean"] = np.asarray(state["normalizer_params"]["mean"])
     out["normalizer.std"] = np.asarray(state["normalizer_params"]["std"])
     return out
@@ -356,9 +402,25 @@ def export_small_scenes():
                             **model_to_numpy(small_scene(name)))
 
 
-def main():
+def export_checkpoint(src: str, dst: str) -> int:
+    """Flattens the JAX checkpoint ``src`` into the port's ``dst`` .npz."""
+    state = training_state_to_numpy(read_jax_checkpoint(src))
+    with open(dst, "wb") as f:
+        np.savez(f, **state)
+    print(f"{dst}: env_steps {int(state['env_steps'])}, Adam count "
+          f"{int(state['optimizer.count'])}, {len(state)} arrays")
+    return 0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if argv[:1] == ["--checkpoint"]:
+        if len(argv) != 3:
+            raise SystemExit("usage: export_torch_assets.py --checkpoint "
+                             "<jax checkpoint> <out.npz>")
+        return export_checkpoint(argv[1], argv[2])
     from vnl_tpu import mjcf
     from vnl_tpu.data.pipeline import process_recording
 

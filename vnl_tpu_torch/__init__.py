@@ -4,8 +4,11 @@ The JAX package ``vnl_tpu`` stays the reference; this package imports
 nothing of it.  Ported so far: the batched physics with its position
 stage (kernel A, or unfused on kernel C, the SPD sweep inverse) and the CG
 contact solve (kernel B) as hand-written Hopper kernels (``csrc/``), the
-``RodentTracking`` env and the training wrappers, the intention policy and
-value network, and the intention-PPO learner (``training.train``) with its
-evaluator.  Entry points run on ``cuda`` unless the caller passes another
-device.
+``RodentTracking`` and ``RodentMultiClipTracking`` envs and the training
+wrappers, the intention policy and value network, the intention-PPO
+learner (``training.train``) with its evaluator, full-state checkpoints
+and eval callback, the MJCF compiler (``mjcf``), clip IO and
+preprocessing (``data``), and the training command line
+(``python -m vnl_tpu_torch.train``).  Entry points run on ``cuda`` unless
+the caller passes another device.
 """

@@ -1,6 +1,8 @@
 """Loads the port's numpy assets (see tools/export_torch_assets.py) into
-torch objects.  Everything here reads plain numpy arrays; nothing of the
-JAX package is imported."""
+torch objects and writes torch objects back in the same layouts: models,
+clips, the policy and value weights in Flax's flattened layout, and the
+full training state of a checkpoint.  Everything here reads and writes
+plain numpy arrays; nothing of the JAX package is imported."""
 
 from __future__ import annotations
 
@@ -74,6 +76,40 @@ def clip_from_numpy(src: Arrays, device="cuda"):
                             for k, v in a.items() if k in fields})
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of a tensor (never a view of a live CPU tensor)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def flax_key(name: str) -> str:
+    """The Flax parameter key of a torch parameter name:
+    ``<module>.weight`` -> ``.kernel`` (``.scale`` for a LayerNorm,
+    ``norm_k``), ``.bias`` -> ``.bias``."""
+    module, leaf = name.rsplit(".", 1)
+    if leaf == "weight":
+        leaf = ("scale" if module.split(".")[-1].startswith("norm_")
+                else "kernel")
+    return f"{module}.{leaf}"
+
+
+def to_flax(name: str, v: np.ndarray) -> np.ndarray:
+    """A torch parameter's value in Flax's layout: an ``nn.Linear.weight``
+    (out, in) becomes a kernel (in, out)."""
+    return v.T if flax_key(name).endswith(".kernel") else v
+
+
+def from_flax(key: str, v) -> torch.Tensor:
+    """The inverse of :func:`to_flax`, as a float32 tensor."""
+    v = torch.tensor(np.asarray(v, np.float32))
+    return v.T.contiguous() if key.endswith(".kernel") else v
+
+
+def torch_name(key: str) -> str:
+    """The torch parameter name of a Flax key (inverse of flax_key)."""
+    module, leaf = key.rsplit(".", 1)
+    return f"{module}.{'bias' if leaf == 'bias' else 'weight'}"
+
+
 def policy_from_numpy(src: Arrays, device="cuda"):
     """The intention policy with the weights of a Flax parameter tree
     flattened to ``a.b.c`` keys (plus ``normalizer.mean/std``).
@@ -100,39 +136,29 @@ def policy_from_numpy(src: Arrays, device="cuda"):
                              out_width=a["action_head.kernel"].shape[1])
     state = {}
     for key, v in a.items():
-        v = torch.as_tensor(np.asarray(v, np.float32))
         if key.startswith("normalizer."):
-            state["obs_" + key.split(".")[1]] = v
-            continue
-        parts = key.split(".")
-        leaf = parts[-1]
-        name = ".".join(parts[:-1])
-        if leaf == "kernel":
-            state[f"{name}.weight"] = v.T.contiguous()
-        elif leaf == "scale":
-            state[f"{name}.weight"] = v
+            state["obs_" + key.split(".")[1]] = from_flax(key, v)
         else:
-            state[f"{name}.bias"] = v
+            state[torch_name(key)] = from_flax(key, v)
     policy.load_state_dict(state)
     return policy.to(device)
 
 
+def policy_state_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
+    """A policy state_dict in the Flax layout of :func:`policy_from_numpy`:
+    ``a.b.c`` keys, the observation normaliser as ``normalizer.mean/std``."""
+    out = {}
+    for key, v in state.items():
+        if key.startswith("obs_"):
+            out["normalizer." + key[4:]] = _host(v)
+        else:
+            out[flax_key(key)] = to_flax(key, _host(v))
+    return out
+
+
 def policy_to_numpy(policy) -> dict:
     """Inverse of :func:`policy_from_numpy` (Flax layout, ``a.b.c`` keys)."""
-    out = {}
-    for key, v in policy.state_dict().items():
-        v = v.detach().cpu().numpy()
-        if key.startswith("obs_"):
-            out["normalizer." + key[4:]] = v
-            continue
-        name, leaf = key.rsplit(".", 1)
-        is_norm = name.split(".")[-1].startswith("norm_")
-        if leaf == "weight":
-            out[f"{name}.{'scale' if is_norm else 'kernel'}"] = (
-                v if is_norm else v.T)
-        else:
-            out[f"{name}.bias"] = v
-    return out
+    return policy_state_to_numpy(policy.state_dict())
 
 
 def value_from_numpy(src: Arrays, device="cuda"):
@@ -145,25 +171,15 @@ def value_from_numpy(src: Arrays, device="cuda"):
     while f"hidden_{len(sizes)}.kernel" in a:
         sizes.append(a[f"hidden_{len(sizes)}.kernel"].shape[1])
     value = MLP(a["hidden_0.kernel"].shape[0], sizes)
-    state = {}
-    for key, v in a.items():
-        name, leaf = key.rsplit(".", 1)
-        v = torch.as_tensor(np.asarray(v, np.float32))
-        state[f"{name}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
-            v.T.contiguous() if leaf == "kernel" else v)
-    value.load_state_dict(state)
+    value.load_state_dict({torch_name(k): from_flax(k, v)
+                           for k, v in a.items()})
     return value.to(device)
 
 
 def value_to_numpy(value) -> dict:
     """Inverse of :func:`value_from_numpy` (Flax layout)."""
-    out = {}
-    for key, v in value.state_dict().items():
-        name, leaf = key.rsplit(".", 1)
-        v = v.detach().cpu().numpy()
-        out[f"{name}.{'kernel' if leaf == 'weight' else 'bias'}"] = (
-            v.T if leaf == "weight" else v)
-    return out
+    return {flax_key(k): to_flax(k, _host(v))
+            for k, v in value.state_dict().items()}
 
 
 def normalizer_from_numpy(src: Arrays, device="cuda"):
@@ -175,3 +191,68 @@ def normalizer_from_numpy(src: Arrays, device="cuda"):
     return RunningStatisticsState(**{
         k: torch.tensor(np.asarray(a[k], np.float32), device=device)
         for k in ("count", "mean", "summed_variance", "std")})
+
+
+# A checkpoint of the port is one .npz in this flattened Flax layout, the
+# layout of a JAX TrainingState flattened by tools/export_torch_assets.py:
+#   env_steps                               int64 ()
+#   normalizer.{count,mean,summed_variance,std}
+#   params.{policy,value}.<flax key>        e.g. params.value.hidden_0.kernel
+#   optimizer.count                         int64 () (optax count, Adam step)
+#   optimizer.{mu,nu}.{policy,value}.<flax key>
+# The policy's copy of the normaliser (its obs_mean / obs_std buffers) is
+# not stored: the trainer sets it from ``normalizer`` when it normalises.
+_NORMALIZER = ("count", "mean", "summed_variance", "std")
+_NETS = ("policy", "value")
+
+
+def training_state_to_numpy(ts) -> dict:
+    """A TrainingState of the port as numpy copies in the checkpoint
+    layout above.  ``ts.optimizer_state`` holds Adam's ``step`` and its
+    moments ``exp_avg`` / ``exp_avg_sq`` by parameter name of the network
+    bundle (``policy.encoder.proj_0.weight``)."""
+    out = {"env_steps": np.asarray(int(ts.env_steps), np.int64),
+           "optimizer.count": np.asarray(int(ts.optimizer_state["step"]),
+                                         np.int64)}
+    for k in _NORMALIZER:
+        out[f"normalizer.{k}"] = _host(getattr(ts.normalizer_params, k))
+    for net in _NETS:
+        for k, v in ts.params[net].items():
+            if not k.startswith("obs_"):
+                out[f"params.{net}.{flax_key(k)}"] = to_flax(k, _host(v))
+    for moment, torch_key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        for name, v in ts.optimizer_state[torch_key].items():
+            net, k = name.split(".", 1)
+            out[f"optimizer.{moment}.{net}.{flax_key(k)}"] = to_flax(
+                k, _host(v))
+    return out
+
+
+def training_state_from_numpy(src: Arrays, device="cuda"):
+    """A TrainingState of the port from a checkpoint in the layout above
+    (the port's own, or a JAX one flattened by the exporter): each Flax
+    kernel (in, out) becomes an ``nn.Linear.weight`` (out, in), for the
+    parameters and for both Adam moments, and optax's ``count`` becomes
+    Adam's ``step``."""
+    from vnl_tpu_torch.training.running_statistics import \
+        RunningStatisticsState
+    from vnl_tpu_torch.training.train import TrainingState
+    a = _arrays(src)
+    params = {net: {} for net in _NETS}
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    for key, v in a.items():
+        parts = key.split(".", 3)
+        if parts[0] == "params":
+            params[parts[1]][torch_name(".".join(parts[2:]))] = \
+                from_flax(key, v).to(device)
+        elif parts[0] == "optimizer" and parts[1] in ("mu", "nu"):
+            moment = "exp_avg" if parts[1] == "mu" else "exp_avg_sq"
+            moments[moment][f"{parts[2]}.{torch_name(parts[3])}"] = \
+                from_flax(key, v).to(device)
+    normalizer = RunningStatisticsState(**{
+        k: torch.tensor(np.asarray(a[f"normalizer.{k}"], np.float32),
+                        device=device) for k in _NORMALIZER})
+    return TrainingState(
+        optimizer_state=dict(step=int(a["optimizer.count"]), **moments),
+        params=params, normalizer_params=normalizer,
+        env_steps=int(a["env_steps"]))

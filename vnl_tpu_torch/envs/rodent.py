@@ -1,10 +1,12 @@
-"""Rodent mocap-tracking env (PyTorch counterpart of
-vnl_tpu/envs/rodent.py RodentTracking), batched over envs.
+"""Rodent mocap-tracking envs (PyTorch counterparts of vnl_tpu/envs/rodent.py
+RodentTracking and RodentMultiClipTracking), batched over envs.
 
-The model comes compiled (the port has no MJCF compiler yet): the rodent
-twin's npz from vnl_tpu_torch/assets by default.  Index spaces, reward
-terms, weights and the post-step-frame termination follow the JAX package
-exactly, deviations from the original reference included:
+The envs take a compiled model: from the MJCF through the port's compiler
+(the registry's "rodent" and "rodent_multiclip" factories, as the JAX
+constructor compiles it), or the rodent twin's npz (``make_twin_env``).
+Index spaces, reward terms, weights and the post-step-frame termination
+follow the JAX package exactly, deviations from the original reference
+included:
 - data.xpos lookups use full-model body ids;
 - reference-clip body lookups use columns of the walker_body_names axis,
   with hand_L/hand_R aliased to finger_L/finger_R;
@@ -15,6 +17,7 @@ exactly, deviations from the original reference included:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -22,8 +25,10 @@ import torch
 
 from vnl_tpu_torch import compat
 from vnl_tpu_torch import math as vmath
-from vnl_tpu_torch.data.reference_clip import ReferenceClip
+from vnl_tpu_torch import mjcf
+from vnl_tpu_torch.data.reference_clip import ClipLibrary, ReferenceClip
 from vnl_tpu_torch.envs.base import PipelineEnv, State
+from vnl_tpu_torch.envs.registry import register_environment
 from vnl_tpu_torch.physics.model import Model
 
 _REF_BODY_ALIASES = {"hand_L": "finger_L", "hand_R": "finger_R"}
@@ -56,7 +61,7 @@ class RodentTracking(PipelineEnv):
     def __init__(
         self,
         model: Model,
-        reference_clip: ReferenceClip,
+        reference_clip: Optional[ReferenceClip],
         end_eff_names: List[str],
         appendage_names: List[str],
         walker_body_names: List[str],
@@ -102,28 +107,47 @@ class RodentTracking(PipelineEnv):
                 and not 1 <= min_sub_clip_length <= sub_clip_length):
             raise ValueError("need 1 <= min_sub_clip_length <= "
                              "sub_clip_length")
-        nb = reference_clip.body_positions.shape[1]
-        if nb == model.nbody:
-            bq = reference_clip.body_quaternions
-            reference_clip = reference_clip.replace(
-                body_positions=reference_clip.body_positions[:, self._body_idxs],
-                body_quaternions=None if bq is None else bq[:, self._body_idxs])
-        elif nb != len(walker_body_names):
+        self._ref_clip = None
+        if reference_clip is not None:
+            self._ref_clip = self._filter_clip(
+                reference_clip._map(lambda x: x.to(dev)), 1)
+
+    def _filter_clip(self, clip: ReferenceClip, body_axis: int):
+        """The clip with its body axis (axis ``body_axis`` of the body
+        leaves) on the walker_body_names axis."""
+        nb = clip.body_positions.shape[body_axis]
+        n_walker = len(self._body_idxs)
+        if nb == self.sys.nbody:
+            idx = (slice(None),) * body_axis + (self._body_idxs,)
+            bq = clip.body_quaternions
+            return clip.replace(body_positions=clip.body_positions[idx],
+                                body_quaternions=None if bq is None
+                                else bq[idx])
+        if nb != n_walker:
             raise ValueError(f"clip body axis {nb} matches neither walker "
-                             f"({len(walker_body_names)}) nor full model "
-                             f"({model.nbody})")
-        self._ref_clip = reference_clip._map(lambda x: x.to(dev))
+                             f"({n_walker}) nor full model "
+                             f"({self.sys.nbody})")
+        return clip
 
     @property
     def reference_clip(self) -> ReferenceClip:
         return self._ref_clip
 
+    # ---- clip access (overridden by the multi-clip env) ----
+    def _clip(self, info):
+        """The clip of each env: at(frame) and slice(start, length)."""
+        return self._ref_clip
+
+    def _extra_reset_info(self, batch, generator, **kw) -> dict:
+        return {}
+
     # ---- reset / step ----
     def reset(self, batch: int, generator: Optional[torch.Generator] = None,
               start_frame: Optional[torch.Tensor] = None,
-              noise: Optional[torch.Tensor] = None) -> State:
+              noise: Optional[torch.Tensor] = None, **kw) -> State:
         """Resets ``batch`` envs.  The start frame and the qpos noise are
-        drawn from ``generator`` unless given explicitly."""
+        drawn from ``generator`` unless given explicitly; ``kw`` goes to
+        the multi-clip env's clip draw."""
         m = self.sys
         dev = m.device
         if self._min_sub_clip_length is not None:
@@ -146,18 +170,20 @@ class RodentTracking(PipelineEnv):
         info = {"cur_frame": start_frame,
                 "sub_clip_frame": torch.zeros_like(start_frame),
                 "sub_clip_length": sub_len}
-        ref = self._ref_clip.at(start_frame)
+        info.update(self._extra_reset_info(batch, generator, **kw))
+        clip = self._clip(info)
+        ref = clip.at(start_frame)
         qpos = torch.cat([ref.position, ref.quaternion, ref.joints], -1)
         qvel = torch.cat([ref.velocity, ref.angular_velocity,
                           ref.joints_velocity], -1)
         data = self.pipeline_init(qpos + noise.to(qpos.dtype), qvel)
-        info["traj"] = self._get_traj(data, start_frame)
+        info["traj"] = self._get_traj(data, start_frame, clip)
         obs = self._get_obs(data, None, info)
         zero = torch.zeros(batch, device=dev)
         metrics = {k: zero for k in ("rcom", "rvel", "rtrunk", "rquat",
                                      "ract", "rapp", "termination_error")}
         info["termination_error"] = self._calculate_termination(
-            data, start_frame)
+            data, start_frame, clip)
         return State(data, obs, zero, zero, metrics, info)
 
     def step(self, state: State, action: torch.Tensor) -> State:
@@ -166,11 +192,12 @@ class RodentTracking(PipelineEnv):
         info["cur_frame"] = info["cur_frame"] + 1
         info["sub_clip_frame"] = info["sub_clip_frame"] + 1
         frame = info["cur_frame"]
+        clip = self._clip(info)
 
         obs = self._get_obs(data, action, state.info)
-        traj = self._get_traj(data, frame)
+        traj = self._get_traj(data, frame, clip)
         rcom, rvel, rtrunk, rquat, ract, rapp, is_healthy = \
-            self._calculate_reward(data, frame)
+            self._calculate_reward(data, frame, clip)
         # weights per the reference envs/rodent.py:193-201
         rcom, rvel, rapp = rcom * 0.01, rvel * 0.01, rapp * 0.01
         rtrunk, rquat, ract = rtrunk * 0.01, rquat * 0.01, ract * 0.0001
@@ -201,9 +228,9 @@ class RodentTracking(PipelineEnv):
                              done=done, metrics=metrics, info=info)
 
     # ---- reward / termination ----
-    def _calculate_termination(self, data, frame):
+    def _calculate_termination(self, data, frame, clip):
         """1 - tracking_error / threshold."""
-        ref = self._ref_clip.at(frame)
+        ref = clip.at(frame)
         error_joints = torch.sum(torch.abs(ref.joints - data.qpos[:, 7:]), -1)
         error_bodies = torch.sum(torch.abs(
             ref.body_positions - data.xpos[:, self._body_idxs]), (-1, -2))
@@ -211,14 +238,14 @@ class RodentTracking(PipelineEnv):
                  + 0.5 * error_joints)
         return 1.0 - error / self._termination_threshold
 
-    def _calculate_reward(self, data, frame):
-        ref = self._ref_clip.at(frame)
+    def _calculate_reward(self, data, frame, clip):
+        ref = clip.at(frame)
         com_ref = ref.body_positions[:, self._ref_com_col]
         rcom = torch.exp(-100.0 * vmath.norm(data.subtree_com[:, 1] - com_ref))
         qvel_ref = torch.cat([ref.velocity, ref.angular_velocity,
                               ref.joints_velocity], -1)
         rvel = torch.exp(-0.1 * vmath.norm(data.qvel - qvel_ref))
-        rtrunk = self._calculate_termination(data, frame)
+        rtrunk = self._calculate_termination(data, frame, clip)
         rquat = torch.exp(-2.0 * vmath.norm(vmath.bounded_quat_dist(
             data.qpos[:, 3:7], ref.quaternion)))
         ract = -0.015 * torch.mean(data.qfrc_actuator ** 2, -1)
@@ -236,10 +263,10 @@ class RodentTracking(PipelineEnv):
         return torch.cat([data.qpos, data.qvel, data.qfrc_actuator,
                           data.xpos[:, self._endeff_idxs].flatten(1)], -1)
 
-    def _get_traj(self, data, cur_frame) -> torch.Tensor:
+    def _get_traj(self, data, cur_frame, clip) -> torch.Tensor:
         """Reference features over the upcoming window: appendages + body
         positions (root-local and global) + root position + joints."""
-        window = self._ref_clip.slice(cur_frame + 1, self._ref_traj_length)
+        window = clip.slice(cur_frame + 1, self._ref_traj_length)
         xmat_root = data.xmat[:, 1]
 
         def to_local(vec):          # vec @ xmat_root, per env
@@ -267,3 +294,78 @@ def make_twin_env(device="cuda", **overrides) -> RodentTracking:
               ref_traj_length=5, termination_threshold=5.0)
     kw.update(overrides)
     return RodentTracking(model, clip, **kw)
+
+
+class RodentMultiClipTracking(RodentTracking):
+    """Multi-clip rodent imitation: each env draws a clip id from a
+    ClipLibrary at reset (``info["clip_id"]``, pinned until the next reset:
+    AutoResetWrapper restores it) and tracks that clip."""
+
+    def __init__(self, model: Model, clip_library: ClipLibrary, **kwargs):
+        super().__init__(model, reference_clip=None, **kwargs)
+        clips, dev = clip_library.clips, model.device
+        clips = dataclasses.replace(clips, **{
+            f.name: getattr(clips, f.name).to(dev)
+            for f in dataclasses.fields(clips)
+            if getattr(clips, f.name) is not None})
+        self._library = ClipLibrary(
+            clips=self._filter_clip(clips, 2),
+            weights=(None if clip_library.weights is None
+                     else clip_library.weights.to(dev)))
+
+    @property
+    def clip_library(self) -> ClipLibrary:
+        return self._library
+
+    def _extra_reset_info(self, batch, generator, clip_weights=None,
+                          clip_id=None) -> dict:
+        """Each env's clip: ``clip_id`` when given, else drawn from
+        ``generator``, categorical in ``clip_weights`` (the trainer's
+        adaptive weights) or the library's weights."""
+        if clip_id is None:
+            clip_id = self._library.sample_id(batch, generator,
+                                              weights=clip_weights)
+        return {"clip_id": torch.as_tensor(clip_id, dtype=torch.long,
+                                           device=self.sys.device)}
+
+    def _clip(self, info):
+        return self._library.view(info["clip_id"])
+
+
+def compile_rodent(mjcf_path: str, scale_factor: float = 0.9,
+                   solver: str = "cg", iterations: int = 6,
+                   ls_iterations: int = 6, device="cuda") -> Model:
+    """The walker as the JAX constructor compiles it (envs/rodent.py:71-82):
+    rescaled, torque actuators, the given solver and a pyramidal cone."""
+    return mjcf.load_model(
+        mjcf_path, rescale=(scale_factor, scale_factor),
+        torque_actuators=True,
+        overrides={"solver": solver, "iterations": iterations,
+                   "ls_iterations": ls_iterations, "cone": "pyramidal"},
+        device=device)
+
+
+_COMPILE_ARGS = ("mjcf_path", "scale_factor", "solver", "iterations",
+                 "ls_iterations", "device")
+
+
+def _split_compile_args(kwargs):
+    compile_kw = {k: kwargs.pop(k) for k in _COMPILE_ARGS if k in kwargs}
+    compile_kw.setdefault("mjcf_path", "reference/assets/rodent.xml")
+    return compile_kw, kwargs
+
+
+def _make_rodent(reference_clip, **kwargs) -> RodentTracking:
+    compile_kw, kwargs = _split_compile_args(kwargs)
+    return RodentTracking(compile_rodent(**compile_kw), reference_clip,
+                          **kwargs)
+
+
+def _make_rodent_multiclip(clip_library, **kwargs) -> RodentMultiClipTracking:
+    compile_kw, kwargs = _split_compile_args(kwargs)
+    return RodentMultiClipTracking(compile_rodent(**compile_kw),
+                                   clip_library, **kwargs)
+
+
+register_environment("rodent", _make_rodent)
+register_environment("rodent_multiclip", _make_rodent_multiclip)

@@ -71,6 +71,17 @@ class IntegratorType(enum.IntEnum):
     IMPLICITFAST = 3
 
 
+class SensorType(enum.IntEnum):
+    """Sensor kinds the MJCF compiler records (the sensors themselves are
+    not ported yet)."""
+
+    TOUCH = 0
+    ACCELEROMETER = 1
+    VELOCIMETER = 2
+    GYRO = 3
+    SUBTREELINVEL = 4
+
+
 class DisableBit(enum.IntFlag):
     CONSTRAINT = 1 << 0
     EQUALITY = 1 << 1

@@ -9,9 +9,17 @@ that step's update, the SGD with the updated one.  Everything runs eagerly
 (no graph capture) and in fp32: the physics pins TF32 off and the flag is
 global, so the networks' products are fp32 too.
 
+Checkpoints (``checkpoint_dir``, ``restore_checkpoint_path``) hold the
+full TrainingState (training/checkpoint.py).  A checkpoint is written after
+every interval, holding the state at the env steps it is named by; the
+JAX package's checkpoints trail live progress by one interval, a TPU
+transfer workaround left behind here.  ``num_timesteps`` is absolute: a
+restored run starts at the restored env steps and Adam step count.  With
+``adaptive_clip_weights`` and a multi-clip env, each evaluation sets new
+clip weights from the per-clip eval rewards and re-resets every env.
+
 Not here yet: the device mesh and the gradient all-reduce
-(``num_devices``), checkpoints (``restore_checkpoint_path``,
-``checkpoint_dir``) and adaptive clip weights of the multi-clip env.
+(``num_devices``).
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import torch
 
 from vnl_tpu_torch import models as models_lib
 from vnl_tpu_torch.envs.wrappers import wrap_for_training
-from vnl_tpu_torch.training import acting, gradients, running_statistics
+from vnl_tpu_torch.training import (acting, checkpoint, gradients,
+                                    running_statistics)
 from vnl_tpu_torch.training import losses as ppo_losses
 from vnl_tpu_torch.training.types import Transition
 
@@ -37,7 +46,8 @@ class TrainingState:
     """Everything the learner carries across steps: plain tensors and
     state_dicts, so a checkpoint can save it as it is.  ``params`` and
     ``optimizer_state`` refer to the live tensors of the networks and the
-    optimizer, which are updated in place."""
+    optimizer, which are updated in place.  ``optimizer_state`` is Adam's
+    by parameter name (``gradients.adam_state``)."""
 
     optimizer_state: Dict
     params: Dict[str, Dict[str, torch.Tensor]]     # "policy", "value"
@@ -63,6 +73,31 @@ def collect_rollouts(env, env_state, policy, generator, unroll_length: int,
     batch = acting.tree_map(
         lambda *xs: torch.cat([x.transpose(0, 1) for x in xs]), *chunks)
     return env_state, batch
+
+
+def load_training_state(ppo_network, optimizer: torch.optim.Adam,
+                        state: TrainingState) -> None:
+    """Copies a TrainingState's parameters into the networks and its Adam
+    state into the optimizer (the normaliser is the caller's)."""
+    named = dict(ppo_network.named_parameters())
+    with torch.no_grad():
+        for net in ("policy", "value"):
+            for k, v in state.params[net].items():
+                if not k.startswith("obs_"):
+                    named[f"{net}.{k}"].copy_(v)
+    gradients.load_adam_state(optimizer, named, state.optimizer_state)
+
+
+def clip_weights_from_metrics(metrics: Dict, num_clips: int) -> np.ndarray:
+    """New (num_clips,) clip sampling weights from the per-clip eval
+    rewards (vnl_tpu/training/train.py:308-320): a clip at the best reward
+    keeps the floor weight 0.25, a clip at 0 (or never evaluated) gets
+    1.25; normalised to sum to 1."""
+    rew = np.array([float(metrics.get(f"eval/episode_reward_clip{c}", 0.0))
+                    for c in range(num_clips)])
+    deficit = 1.0 - rew / (rew.max() + 1e-8)
+    w = np.maximum(deficit, 0.0) + 0.25
+    return w / w.sum()
 
 
 def sgd_pass(update_step: Callable, batch: Transition, num_minibatches: int,
@@ -113,6 +148,9 @@ def train(
     eval_env=None,
     policy_params_fn: Callable = lambda *args: None,
     kl_weight: float = 1e-4,
+    restore_checkpoint_path: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    adaptive_clip_weights: bool = False,
     device="cuda",
 ):
     """Runs PPO; returns (make_policy, (normalizer_params, policy
@@ -157,9 +195,12 @@ def train(
     update_step = gradients.gradient_update_fn(loss_fn, optimizer,
                                                has_aux=True)
 
+    named_parameters = dict(ppo_network.named_parameters())
+
     def snapshot(normalizer_params, env_steps) -> TrainingState:
         return TrainingState(
-            optimizer_state=optimizer.state_dict(),
+            optimizer_state=gradients.adam_state(optimizer,
+                                                 named_parameters),
             params={"policy": ppo_network.policy.state_dict(),
                     "value": ppo_network.value.state_dict()},
             normalizer_params=normalizer_params, env_steps=env_steps)
@@ -167,6 +208,13 @@ def train(
     training_state = snapshot(
         running_statistics.init_state(env_state.obs.shape[-1:],
                                       device=device), 0)
+    if restore_checkpoint_path is not None:
+        restored = checkpoint.restore(restore_checkpoint_path, device=device)
+        load_training_state(ppo_network, optimizer, restored)
+        if normalize_observations:
+            ppo_network.set_normalizer(restored.normalizer_params)
+        training_state = snapshot(restored.normalizer_params,
+                                  restored.env_steps)
 
     def one_training_step(ts: TrainingState, env_state):
         _sync(device)
@@ -221,6 +269,9 @@ def train(
         }
         return ts, env_state, metrics
 
+    clip_lib = getattr(environment, "clip_library", None)
+    adaptive_clip_weights = adaptive_clip_weights and clip_lib is not None
+
     evaluator = acting.Evaluator(
         wrap_for_training(eval_env or environment,
                           episode_length=episode_length,
@@ -238,7 +289,7 @@ def train(
         logging.info(metrics)
         progress_fn(0, metrics)
 
-    current_step, interval = 0, -1
+    current_step, interval = training_state.env_steps, -1
     while current_step < num_timesteps:
         interval += 1
         logging.info("starting interval %s t=%.1fs", interval,
@@ -249,10 +300,21 @@ def train(
                                   training_state.env_steps)
         current_step = training_state.env_steps
         metrics = evaluator.run_evaluation(training_metrics)
+        if adaptive_clip_weights:
+            w = clip_weights_from_metrics(metrics, clip_lib.num_clips)
+            env_state = env.reset(num_envs, generator=gen,
+                                  clip_weights=torch.as_tensor(
+                                      w, dtype=torch.float32, device=device))
+            metrics.update({f"training/clip_weight_{c}": float(w[c])
+                            for c in range(len(w))})
         logging.info(metrics)
         progress_fn(current_step, metrics)
         policy_params_fn(current_step, make_policy,
                          params_of(training_state))
+        if checkpoint_dir is not None:
+            checkpoint.save_async(checkpoint_dir, current_step,
+                                  training_state)
 
+    checkpoint.wait_for_pending_saves()
     logging.info("total steps: %s", current_step)
     return make_policy, params_of(training_state), metrics
