@@ -46,10 +46,40 @@ Phases, in order; any failure exits non-zero:
      least once per physics substep of each run, C never.  Prints a
      {"cli": ...} line: env-steps/s of each run, the compile, checkpoint
      save and restore, and eval-callback seconds.
+  8. the humanoid family: the port's compiler builds the committed
+     dm_control humanoid (vnl_tpu_torch/assets/dm_humanoid) on the card,
+     every field equal to the host's compile; kernel A against its plain
+     version on 1024 humanoid states (nv 27, tile (10, 3)); kernel B on
+     1024 humanoid contact states (729 constraint rows: the shared-memory
+     line search, cg_kernel<0>, which must be the one picked; condim 1
+     and 3, contacts between two moving bodies) through
+     kernel_bench.check_cg_reruns: check_cg's per-env test at 1e-3, with a
+     budget of twice the envs the plain solve itself misses when re-run
+     in float32 at one rounding, plus 0.5% (check_cg's own rule is met by
+     no float32 evaluation on these states); HumanoidTracking and
+     HumanoidStanding, wrapped for training, reset for 1024 envs and
+     driven 20 control steps by a freshly initialised intention policy at
+     the config's widths (value (1024, 1024)), A and B at least 100
+     launches each, every qpos, qvel, reward and observation finite;
+     then `python -m vnl_tpu_torch.train`'s main() with
+     vnl_tpu_torch/configs/humanoid_config.yaml at the config's own sizes
+     (128 envs) for one interval of one training step (episode 30), which
+     must write its checkpoint and finished params;
+  9. the ant: the committed gymnasium ant compiled on the card as in 8;
+     kernel A on 1024 ant states (nv 14); kernel C against its plain
+     version on the 1024 Hessians of the first Newton iteration at ant
+     contact states (n 14, rtol 5e-3, bitwise symmetric, two launches
+     the same bits), with torch.linalg.inv's time; AntTracking (Newton,
+     RK4) reset for 1024 envs and driven 20 control steps as in 8: A at
+     least 4 x 5 x 20 launches, C at least once per forward pass (as
+     often as A), B never; then train(...) at 1024 envs, networks (1024,
+     1024), for two training steps (one interval, episode 30).
 Then it prints the training env-steps/s of both configurations, the card's
-name and power limit, one JSON line with each kernel's launches, time per
-launch, plain time, bound, error, registers, shared memory and resident
-blocks per SM, every number measured in this run, and last
+name and power limit, one JSON line with a row per kernel and shape (the
+twin's A, B and C; A and B at the humanoid's shapes; A and C at the ant's)
+with its launches on the paths that run that shape, time per launch, plain
+time, bound, error, registers, shared memory and resident blocks per SM,
+every number measured in this run, and last
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--out details.json]
@@ -139,7 +169,9 @@ def same_bits(name, first, second):
                                  "launches on the same inputs")
 
 
-def phase_kernel_a(m, gen):
+def phase_kernel_a(m, gen, name="position", other_batches=OTHER_BATCHES):
+    """Kernel A against its plain version on BATCH random states of ``m``
+    (and ``other_batches``); returns (kernels row, errors)."""
     from vnl_tpu_torch.kernel_bench import QUEUED, random_states, time_ms
     from vnl_tpu_torch.ops import position as pos
     from vnl_tpu_torch.physics import inertia
@@ -148,8 +180,8 @@ def phase_kernel_a(m, gen):
     plain = pos.position_plain(m, qpos)
     torch.cuda.synchronize()
     errs = check_position(m, qpos, ker, plain)
-    same_bits("position", ker, pos._launch(m, qpos))
-    for batch in OTHER_BATCHES:
+    same_bits(name, ker, pos._launch(m, qpos))
+    for batch in other_batches:
         q = random_states(m, batch, gen)
         errs[f"batch_{batch}"] = max(check_position(
             m, q, pos._launch(m, q), pos.position_plain(m, q)).values())
@@ -161,7 +193,9 @@ def phase_kernel_a(m, gen):
     flops = BATCH * 2 * nmat * m.nv ** 3    # the sweeps; the rest is < 5%
     b_ms, b_by = bound_ms(nbytes, flops)
     res = pos.resources(m)
-    return dict(name="position", route="cuda",
+    return dict(name=name, kernel="position", route="cuda",
+                shape=dict(batch=BATCH, nq=m.nq, nv=m.nv, nbody=m.nbody,
+                           tile=list(pos.tile_shape(m.nv))),
                 source="vnl_tpu_torch/csrc/position.cu",
                 replaces="vnl_tpu/ops/pallas_position.py:229",
                 max_abs_err=max(v for k, v in errs.items()
@@ -189,18 +223,30 @@ def cg_cost(st, args):
 CG_OUT = ("qacc", "qfrc_constraint", "con_f")
 
 
-def phase_kernel_b(m, gen):
-    from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg, contact_states,
-                                            time_ms)
+def phase_kernel_b(m, gen, name="cg", other_batches=OTHER_BATCHES,
+                   press=0.005, reruns=False):
+    """Kernel B against its plain version on BATCH contact states of ``m``,
+    the root lowered by ``press`` (and on ``other_batches``), by
+    kernel_bench.check_cg, or with ``reruns`` by check_cg_reruns (the same
+    per-env tolerance, with a budget of twice the envs that the plain
+    solve itself misses when re-run at one rounding); returns (kernels
+    row, errors)."""
+    from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg, check_cg_reruns,
+                                            contact_states, time_ms)
     from vnl_tpu_torch.ops import cg as cg_ops
-    (args, st), active = contact_states(m, BATCH, gen)
+    (args, st), active = contact_states(m, BATCH, gen, press)
     ker = cg_ops._launch(st, args)
     torch.cuda.synchronize()
-    errs = check_cg(st, args, ker)      # rtol = atol = 1e-3
-    same_bits("cg", ker, cg_ops._launch(st, args))
-    off, unstable = errs["off_envs"], errs["unstable_envs"]
-    for batch in OTHER_BATCHES:
-        (a, s), _ = contact_states(m, batch, gen)
+    if reruns:
+        errs = check_cg_reruns(st, args, ker)      # rtol = atol = 1e-3
+        unstable = None
+    else:
+        errs = check_cg(st, args, ker)             # rtol = atol = 1e-3
+        unstable = errs["unstable_envs"]
+    off = errs["off_envs"]
+    same_bits(name, ker, cg_ops._launch(st, args))
+    for batch in other_batches:
+        (a, s), _ = contact_states(m, batch, gen, press)
         e = check_cg(s, a, cg_ops._launch(s, a))
         errs[f"batch_{batch}"] = e
         off, unstable = off + e["off_envs"], unstable + e["unstable_envs"]
@@ -208,7 +254,11 @@ def phase_kernel_b(m, gen):
     plain_ms = time_ms(lambda: cg_ops.cg_plain(*args, statics=st), reps=5)
     b_ms, b_by = bound_ms(*cg_cost(st, args))
     res = cg_ops.resources(st, m.device)
-    return dict(name="cg", route="cuda", source="vnl_tpu_torch/csrc/cg.cu",
+    return dict(name=name, kernel="cg", route="cuda",
+                shape=dict(batch=BATCH, nv=st.nv, ncon=st.ncon,
+                           nlimit=st.nlimit, rows=st.nlimit + 4 * st.ncon,
+                           instantiation=cg_ops.kernel_name(st)),
+                source="vnl_tpu_torch/csrc/cg.cu",
                 replaces="vnl_tpu/ops/pallas_cg.py:74",
                 max_abs_err=max(errs[n] for n in CG_OUT),
                 ms=ms, plain_ms=plain_ms,
@@ -219,7 +269,7 @@ def phase_kernel_b(m, gen):
                 spill_bytes=spill_bytes("cg"),
                 # envs of the three batches held to the float64 plain solve,
                 # and envs on which the plain solve differs from itself
-                checked_envs=BATCH + sum(OTHER_BATCHES), off_envs=off,
+                checked_envs=BATCH + sum(other_batches), off_envs=off,
                 unstable_envs=unstable), \
         dict(errs, active_contacts=active, ncon=st.ncon, nlimit=st.nlimit)
 
@@ -330,7 +380,9 @@ def phase_kernel_c(m, gen):
     library_ms = time_ms(lambda: torch.linalg.inv(flat), reps=10)
     nmat = flat.shape[0]
     b_ms, b_by = bound_ms(2 * nmat * m.nv ** 2 * 4, nmat * 2 * m.nv ** 3)
-    row = dict(name="sweep", route="cuda",
+    row = dict(name="sweep", kernel="sweep", route="cuda",
+               shape=dict(batch=list(pair.shape[:2]), n=m.nv,
+                          tile=list(route.tile)),
                source="vnl_tpu_torch/csrc/sweep.cu",
                replaces="vnl_tpu/ops/pallas_linalg.py:49",
                max_abs_err=errs["twin_pair"], ms=ms, plain_ms=plain_ms,
@@ -399,20 +451,16 @@ CLI_SETTINGS = ["train.episode_length=30", "train.num_timesteps=40960",
                 "train.eval_every=20480"]
 
 
-def check_twin_compile(device) -> float:
-    """Compiles rodent_twin.xml with the port's compiler onto the card and
-    holds every field against rodent_twin_model.npz, bit for bit; returns
-    the compile's seconds (XML to a Model on the card)."""
+def check_compile(compile_fn, want, device, label):
+    """Runs ``compile_fn`` (the port's compiler, an MJCF to a Model on the
+    card) and holds every field against ``want`` (numpy fields), bit for
+    bit; returns (the Model, the compile's seconds)."""
     import dataclasses
-    from vnl_tpu_torch import compat
-    from vnl_tpu_torch.envs import compile_rodent
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    m = compile_rodent(TWIN_XML, device=device)
+    m = compile_fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    with np.load(compat.TWIN_MODEL) as z:
-        want = {k: z[k] for k in z.files}
     seen = set()
     for f in dataclasses.fields(m):
         v = getattr(m, f.name)
@@ -438,11 +486,32 @@ def check_twin_compile(device) -> float:
         else:
             same = np.array_equal(np.asarray(v), w)
         if not same:
-            raise AssertionError(f"compiled field {f.name} differs from "
-                                 "rodent_twin_model.npz")
+            raise AssertionError(f"compiled field {f.name} of {label} "
+                                 "differs")
     if seen != set(want):
         raise AssertionError(f"fields not compared: {set(want) ^ seen}")
-    return seconds
+    return m, seconds
+
+
+def check_twin_compile(device) -> float:
+    """The twin from rodent_twin.xml, as compile_rodent builds it, against
+    rodent_twin_model.npz; returns the compile's seconds."""
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.envs import compile_rodent
+    with np.load(compat.TWIN_MODEL) as z:
+        want = {k: z[k] for k in z.files}
+    return check_compile(lambda: compile_rodent(TWIN_XML, device=device),
+                         want, device, "rodent_twin.xml")[1]
+
+
+def check_scene_compile(path, overrides, device):
+    """A committed third-party scene compiled onto the card, every field
+    equal to the same compile on the host (numpy); returns (Model, s)."""
+    from vnl_tpu_torch import mjcf
+    want = mjcf.compile_numpy(mjcf.load_spec(path, overrides=overrides))
+    return check_compile(
+        lambda: mjcf.load_model(path, overrides=overrides, device=device),
+        want, device, os.path.basename(path))
 
 
 def _records(log_dir):
@@ -461,20 +530,22 @@ def check_cli_launches(tag, counts, substeps):
                              f"{substeps} physics substeps")
 
 
-def run_cli(tag, extra, device, expect_from=0):
-    """main() of the command line with the twin config; returns (report,
-    launch counts, run dir).  Checks the run's env steps, finite losses,
-    and A and B launched at least once per physics substep."""
+TWIN_ARGS = [f"env_config={ROOT}/vnl_tpu_torch/configs/rodent_twin_config.yaml",
+             f"env.clip_path={CLI_DIR}/twin_clip.p",
+             f"env.env_args.mjcf_path={TWIN_XML}"]
+
+
+def run_cli(tag, extra, device, expect_from=0, env_args=TWIN_ARGS):
+    """main() of the command line with an env config (``env_args``, the
+    twin's by default); returns (report, launch counts, run dir, last
+    metrics record).  Checks the run's env steps, finite losses, and A
+    and B launched at least once per physics substep."""
     import glob
     from vnl_tpu_torch import train as cli
     from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     log_dir = os.path.join(CLI_DIR, tag, "logs")
-    args = [f"env_config={ROOT}/vnl_tpu_torch/configs/"
-            "rodent_twin_config.yaml",
-            f"env.clip_path={CLI_DIR}/twin_clip.p",
-            f"env.env_args.mjcf_path={TWIN_XML}",
-            f"train.checkpoint_dir={CLI_DIR}/{tag}/ck",
-            f"train.log_dir={log_dir}"] + CLI_SETTINGS + extra
+    args = env_args + [f"train.checkpoint_dir={CLI_DIR}/{tag}/ck",
+                       f"train.log_dir={log_dir}"] + CLI_SETTINGS + extra
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -581,6 +652,214 @@ def phase_cli(device):
     return rep, (c1, c2, c3)
 
 
+HUMANOID_PRESS = 0.3   # at qpos0 the humanoid's feet are 0.21 m up
+# Kernel B on humanoid contact states is held by check_cg_reruns, not by
+# check_cg's rule, which no float32 evaluation meets there: with the
+# model's 6 CG iterations and 6 line-search rounds, the plain solve re-run
+# in float32 with its inputs moved by one rounding lands beyond 1e-3 of
+# both its float32 and float64 results on about 2% of these states (the
+# counts are printed in the "kernel_b_humanoid" line), near switches of
+# the line search's active set.
+CONFIG_NETS = dict(intention_latent_size=64, encoder_layer_sizes=(256, 128),
+                   decoder_layer_sizes=(128, 256),
+                   value_hidden_layer_sizes=(1024, 1024))  # train_config.yaml
+
+
+def env_rollout(env, device, need, sizes):
+    """``env`` wrapped for training, reset for BATCH envs and driven for
+    UNROLL control steps by a freshly initialised intention policy at the
+    config's widths, sampling from a seeded generator; returns (launch
+    counts of reset and unroll, report).  Requires every kernel in
+    ``need`` ({name: least launches}) and finite qpos, qvel, reward and
+    observations of the expected (obs, traj) ``sizes``."""
+    from vnl_tpu_torch import models
+    from vnl_tpu_torch.envs import wrap_for_training
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from vnl_tpu_torch.training import generate_unroll
+    wenv = wrap_for_training(env, episode_length=150)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = wenv.reset(BATCH, generator=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    net = models.make_intention_ppo_networks(
+        state.info["traj"].shape[-1], state.obs.shape[-1], env.action_size,
+        generator=torch.Generator().manual_seed(SEED), device=device,
+        **CONFIG_NETS)
+    policy = models.make_inference_fn(net)(deterministic=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, rollout = generate_unroll(wenv, state, policy, gen, UNROLL)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = dict(launch_counts)
+    d = state.pipeline_state
+    if not all(bool(torch.isfinite(x).all()) for x in
+               (d.qpos, d.qvel, rollout.reward, rollout.observation)):
+        raise AssertionError(f"{type(env).__name__}: non-finite qpos, qvel, "
+                             "reward or obs")
+    if (state.obs.shape[-1], state.info["traj"].shape[-1]) != sizes:
+        raise AssertionError(f"{type(env).__name__}: obs, traj "
+                             f"{state.obs.shape}, {state.info['traj'].shape}")
+    for k, least in need.items():
+        if counts.get(k, 0) < least:
+            raise AssertionError(f"{type(env).__name__}: kernel {k} launched "
+                                 f"{counts.get(k, 0)} times, expected >= "
+                                 f"{least}")
+    return counts, dict(
+        reset_s=t1 - t0, unroll_s=t3 - t2,
+        env_steps_per_s=BATCH * UNROLL / (t3 - t2),
+        ms_per_control_step=1e3 * (t3 - t2) / UNROLL,
+        mean_reward=float(rollout.reward.mean()),
+        done_share=float(rollout.discount.eq(0).float().mean()),
+        root_z_mean=float(d.qpos[:, 2].mean()), launches=counts)
+
+
+def add_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_humanoid(device):
+    """Phase 8; returns (kernel rows, launch counts of its paths, report,
+    errors)."""
+    import glob
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.envs import HumanoidStanding, HumanoidTracking
+    t_phase = time.perf_counter()
+    rep = {}
+    m, rep["compile_s"] = check_scene_compile(
+        compat.DM_HUMANOID_XML,
+        {"solver": "cg", "iterations": 6, "ls_iterations": 6}, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    row_a, errs_a = phase_kernel_a(m, gen, "position_humanoid", ())
+    row_b, errs_b = phase_kernel_b(m, gen, "cg_humanoid", (),
+                                   press=HUMANOID_PRESS, reruns=True)
+    if row_b["shape"]["instantiation"] != "cg_kernel<0>":
+        raise AssertionError(f"kernel B on the humanoid: {row_b['shape']}")
+    print(json.dumps({"kernel_b_humanoid": dict(
+        row_b["shape"], active_contacts=errs_b["active_contacts"],
+        **{k: errs_b[k] for k in ("far_envs", "off_envs", "budget_far",
+                                  "budget_off", "rerun_far_off")},
+        ms=row_b["ms"], plain_ms=row_b["plain_ms"])}), flush=True)
+    need = {"position": UNROLL * 5, "cg": UNROLL * 5}
+    c_track, rep["tracking"] = env_rollout(
+        HumanoidTracking(device=device), device, need, (55, 630))
+    c_stand, rep["standing"] = env_rollout(
+        HumanoidStanding(device=device), device, need, (336, 336))
+    from vnl_tpu_torch.training import checkpoint
+    rep["cli"], c_cli, run, _ = run_cli(
+        "humanoid", ["train.num_timesteps=20480"], device,
+        env_args=[f"env_config={ROOT}/vnl_tpu_torch/configs/"
+                  "humanoid_config.yaml"])
+    ckpt = checkpoint.latest_checkpoint(os.path.join(run, "state"))
+    finished = compat.policy_from_numpy(os.path.join(run, "finished.npz"),
+                                        device=device)
+    if not (ckpt or "").endswith("/20480.npz") or \
+            finished.encoder.proj_0.in_features != 630 or \
+            not glob.glob(os.path.join(run, "20480.npz")):
+        raise AssertionError(f"humanoid command line: checkpoint {ckpt}, "
+                             "params")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"humanoid": rep}), flush=True)
+    return ([row_a, row_b], add_counts(c_track, c_stand, c_cli), rep,
+            {"position_humanoid": errs_a, "cg_humanoid": errs_b})
+
+
+def phase_ant(device):
+    """Phase 9; returns (kernel rows, launch counts of its paths, report,
+    errors)."""
+    from vnl_tpu_torch import bench, compat, models
+    from vnl_tpu_torch.envs import AntTracking
+    from vnl_tpu_torch.kernel_bench import QUEUED, newton_hessians, time_ms
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts, sweep
+    from vnl_tpu_torch.training import train
+    t_phase = time.perf_counter()
+    rep = {}
+    m, rep["compile_s"] = check_scene_compile(
+        compat.GYM_ANT_XML,
+        {"solver": "newton", "iterations": 1, "ls_iterations": 4}, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    row_a, errs_a = phase_kernel_a(m, gen, "position_ant", ())
+    # kernel C on the Hessians of the first Newton iteration
+    H, active = newton_hessians(m, BATCH, gen, press=0.3)
+    errs_c = {"active_contacts": active}
+    check_sweep("ant_newton", H, errs_c)
+    route = sweep.route(m.nv)
+    res = sweep.resources(m.nv)
+    ms = time_ms(lambda: sweep._launch(H), queued=QUEUED)
+    plain_ms = time_ms(lambda: sweep.inv_spd_sweep_plain(H), reps=5)
+    library_ms = time_ms(lambda: torch.linalg.inv(H), reps=10)
+    b_ms, b_by = bound_ms(2 * BATCH * m.nv ** 2 * 4, BATCH * 2 * m.nv ** 3)
+    row_c = dict(name="sweep_ant_newton", kernel="sweep", route="cuda",
+                 shape=dict(batch=BATCH, n=m.nv, tile=list(route.tile)),
+                 source="vnl_tpu_torch/csrc/sweep.cu",
+                 replaces="vnl_tpu/ops/pallas_linalg.py:49",
+                 max_abs_err=errs_c["ant_newton"], ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                 regs=res["regs"], smem_bytes=res["smem_bytes"],
+                 blocks_per_sm=res["blocks_per_sm"],
+                 local_bytes=res["local_bytes"],
+                 spill_bytes=spill_bytes(
+                     "sweep", "sweep_tile_kernelILi{}ELi{}EE".format(
+                         *route.tile)))
+    env = AntTracking(device=device)
+    # every forward pass (4 a physics step, RK4) launches A once and, by
+    # its one Newton iteration, C once; B never
+    c_roll, rep["rollout"] = env_rollout(
+        env, device, {"position": 4 * 5 * UNROLL, "sweep": 4 * 5 * UNROLL},
+        (504, 475))
+    if c_roll.get("cg", 0) or c_roll["sweep"] < c_roll["position"]:
+        raise AssertionError(f"ant rollout launches {c_roll}")
+    seen, made = [], {}
+
+    def factory(*a, **kw):
+        made["net"] = models.make_intention_ppo_networks(*a, **kw)
+        made["init"] = {k: v.clone()
+                        for k, v in made["net"].state_dict().items()}
+        return made["net"]
+
+    kw = dict(bench.TRAIN_KW, episode_length=EVAL_EPISODE)
+    per_step = kw["batch_size"] * kw["unroll_length"] * kw["num_minibatches"]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    train(env, num_timesteps=2 * per_step, num_evals=2,
+          progress_fn=lambda step, mt: seen.append((step, mt)),
+          network_factory=factory, device=device, **kw)
+    torch.cuda.synchronize()
+    c_train = dict(launch_counts)
+    step, last = seen[-1]
+    bad = [k for k, v in last.items() if not np.isfinite(v)]
+    now = made["net"].state_dict()
+    still = [k for k, v in made["init"].items()
+             if k.endswith("weight") and torch.equal(v, now[k])]
+    widths = (made["net"].policy.encoder.proj_0.out_features,
+              made["net"].value.hidden_0.out_features)
+    if bad or still or step != 2 * per_step or widths != (1024, 1024) or \
+            c_train.get("cg", 0) or c_train.get("sweep", 0) < \
+            c_train.get("position", 0) or c_train.get("position", 0) < \
+            2 * 4 * 5 * UNROLL:
+        raise AssertionError(f"ant training: non-finite {bad}, unmoved "
+                             f"{still}, steps {step}, widths {widths}, "
+                             f"launches {c_train}")
+    rep["training"] = dict(
+        training_steps=2, env_steps=step, wall_s=time.perf_counter() - t0,
+        training_env_steps_per_s=last["training/sps"],
+        rollout_s_per_training_step=last["training/rollout_s_per_step"],
+        sgd_s_per_training_step=last["training/sgd_s_per_step"],
+        eval_s=last["eval/epoch_eval_time"], launches=c_train)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"ant": rep}), flush=True)
+    return ([row_a, row_c], add_counts(c_roll, c_train), rep,
+            {"position_ant": errs_a, "sweep_ant_newton": errs_c})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script drives "
@@ -616,16 +895,23 @@ def main() -> int:
     counts_fused, info["training_fused"] = phase_training(True, steps=2)
     counts_unfused, info["training_unfused"] = phase_training(False, steps=1)
     info["cli"], counts_cli = phase_cli(device)
-    kernels = [row_a, row_b, row_c]
+    rows_h, counts_h, info["humanoid"], errs_h = phase_humanoid(device)
+    rows_ant, counts_ant, info["ant"], errs_ant = phase_ant(device)
+    twin_counts = add_counts(counts, counts_fused, counts_unfused,
+                             *counts_cli)
+    kernels = [row_a, row_b, row_c] + rows_h + rows_ant
     for row in kernels:
-        # summed over the paths, each counted from zero on its own
-        row["launches"] = sum(c.get(row["name"], 0) for c in
-                              (counts, counts_fused, counts_unfused)
-                              + counts_cli)
+        # each shape's launches on the paths that run it (the twin's rows:
+        # phases 4, 6, 7; the humanoid's: 8; the ant's: 9), each path
+        # counted from zero on its own
+        paths = (counts_h if row["name"].endswith("humanoid") else
+                 counts_ant if "ant" in row["name"] else twin_counts)
+        row["launches"] = paths.get(row["kernel"], 0)
         if row["launches"] < 1:
             raise AssertionError(f"kernel {row['name']} never launched on "
-                                 "the main paths")
-    info["details"] = {"position": errs_a, "cg": errs_b, "sweep": errs_c}
+                                 "its paths")
+    info["details"] = dict({"position": errs_a, "cg": errs_b,
+                            "sweep": errs_c}, **errs_h, **errs_ant)
 
     from vnl_tpu_torch.bench import gpu_name_and_power_limit
     smi = gpu_name_and_power_limit()

@@ -302,3 +302,43 @@ def test_check_cg_yardstick(twin, case):
         ker[2][0, 0, 0] = float("nan")
         with pytest.raises(AssertionError, match="not finite"):
             kernel_bench.check_cg(st, args, ker)
+
+
+@pytest.fixture(scope="module")
+def humanoid_cg():
+    """128 humanoid contact states at the CG solve's inputs (6 iterations,
+    729 rows)."""
+    from vnl_tpu_torch import kernel_bench
+    from vnl_tpu_torch.envs.humanoid import load_humanoid_model
+    m = load_humanoid_model(device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    return kernel_bench.contact_states(m, 128, gen, press=0.3)[0]
+
+
+@pytest.mark.parametrize("case", ["rerun", "scaled", "fewer_iterations"])
+def test_check_cg_reruns_humanoid(humanoid_cg, case):
+    """kernel_bench.check_cg_reruns on humanoid contact states, where no
+    float32 evaluation meets check_cg's rule: the plain solve re-run with
+    its inputs moved by one rounding (scaled by 1 + 2e-7 N(0, 1)) stands
+    in for the kernel and passes, and so fails check_cg; qfrc_constraint
+    1% off on every env, and a solve of 5 iterations instead of 6, are
+    refused."""
+    from vnl_tpu_torch import kernel_bench
+    args, st = humanoid_cg
+    if case == "rerun":
+        g2 = torch.Generator().manual_seed(100)
+        other = tcg.cg_plain(*[a * (1 + 2e-7 * torch.randn(
+            a.shape, generator=g2)) for a in args], statics=st)
+        out = kernel_bench.check_cg_reruns(st, args, other)
+        assert 0 < out["far_envs"] <= out["budget_far"]
+        with pytest.raises(AssertionError, match="float64"):
+            kernel_bench.check_cg(st, args, other)
+        return
+    if case == "scaled":
+        plain = tcg.cg_plain(*args, statics=st)
+        bad = [plain[0], plain[1] * 1.01, plain[2]]
+    else:
+        bad = tcg.cg_plain(*args, statics=tcg.CgStatics.make(
+            st.nv, st.lim_dof, st.chain1, st.chain2, 5, st.ls_iters))
+    with pytest.raises(AssertionError, match="at most"):
+        kernel_bench.check_cg_reruns(st, args, bad)

@@ -16,7 +16,10 @@ against the root train.py of the JAX package.
   tests/test_torch_cli_eval.py (each file stays under a minute).
 - ``main([...], device="cpu")`` end to end at narrow widths writes the
   metrics JSONL, params per evaluation, full-state checkpoints and
-  ``finished.npz``, which loads back through compat.policy_from_numpy."""
+  ``finished.npz``, which loads back through compat.policy_from_numpy;
+  the same with vnl_tpu_torch/configs/humanoid_config.yaml (the
+  HumanoidTracking env on the committed dm_control humanoid and its
+  built-in clip; build_env equal to root train.build_env's model)."""
 
 import dataclasses
 import glob
@@ -223,11 +226,52 @@ def test_main_end_to_end(tmp_path):
         records[1]
 
 
-def test_unported_paths_raise(clip_pickle):
-    cfg = _cfg("rodent", clip_pickle)
-    cfg["env"] = {"name": "humanoidtracking", "env_args": {}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.build_env(cfg, device="cpu")
+def test_unported_paths_raise():
+    """Rendering is the one path of the command line still to port (the
+    humanoid, which raised here before, is built by
+    test_main_humanoid_end_to_end)."""
     from vnl_tpu_torch.training.eval_callback import EvalCallback
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EvalCallback(None, ".", render=True)
+
+
+HUMANOID_CONFIG = f"{tp.ROOT}/vnl_tpu_torch/configs/humanoid_config.yaml"
+
+
+def test_main_humanoid_end_to_end(tmp_path):
+    """One interval of the humanoid command line at narrow widths."""
+    args = [f"env_config={HUMANOID_CONFIG}", "train.num_timesteps=32",
+            f"train.checkpoint_dir={tmp_path / 'ck'}",
+            f"train.log_dir={tmp_path / 'logs'}"] + NARROW
+    _, _, metrics = ttrain.main(args, device="cpu")
+    assert np.isfinite(metrics["training/total_loss"])
+    (run,) = glob.glob(str(tmp_path / "ck" / "*"))
+    assert {"32.npz", "finished.npz", "state"} <= set(os.listdir(run))
+    policy = compat.policy_from_numpy(os.path.join(run, "finished.npz"),
+                                      device="cpu")
+    # traj 630 = 5 x (16 x 3 x 2 + 3 + 21) features, obs 55 = nq + nv
+    assert policy.encoder.proj_0.in_features == 630
+    cfg = apply_overrides(load_config(
+        f"{tp.ROOT}/vnl_tpu_torch/configs/train_config.yaml",
+        HUMANOID_CONFIG), NARROW)
+    tenv = ttrain.build_env(cfg, device="cpu")
+    assert type(tenv).__name__ == "HumanoidTracking"
+    assert tenv.sys.nv == 27 and tenv.n_frames == 2
+
+
+def test_build_env_humanoid_matches_jax(monkeypatch):
+    """The model root train.build_env compiles for the humanoid config,
+    with the committed humanoid as the JAX env's _HUMANOID_XML."""
+    from vnl_tpu.envs import humanoid as jhumanoid
+    monkeypatch.setattr(jhumanoid, "_HUMANOID_XML", tp.HUMANOID_XML)
+    cfg = load_config(f"{tp.ROOT}/vnl_tpu_torch/configs/train_config.yaml",
+                      HUMANOID_CONFIG)
+    jenv = jtrain.build_env(cfg)
+    tenv = ttrain.build_env(cfg, device="cpu")
+    want = exporter.model_to_numpy(jenv.sys)
+    for k, w in want.items():
+        g = getattr(tenv.sys, k, None)
+        if k.startswith("opt_"):
+            g = getattr(tenv.sys.opt, k[4:])
+        g = g.numpy() if torch.is_tensor(g) else np.asarray(g)
+        np.testing.assert_array_equal(g, w, err_msg=k)

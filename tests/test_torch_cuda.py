@@ -279,3 +279,76 @@ def test_wrappers_reject_bad_inputs(model):
                                             dtype=torch.float64))
     with pytest.raises(ValueError):     # one matrix must fit shared memory
         sweep_ops.inv_spd_sweep(torch.zeros(1, 300, 300, device="cuda"))
+
+
+# ---- the humanoid and ant families (committed third-party scenes) ----
+
+def _scene(path, **overrides):
+    from vnl_tpu_torch import mjcf
+    return mjcf.load_model(path, overrides=overrides or None, device="cuda")
+
+
+@pytest.fixture
+def humanoid(model):
+    return _scene(compat.DM_HUMANOID_XML, solver="cg", iterations=6,
+                  ls_iterations=6)
+
+
+@pytest.fixture
+def ant(model):
+    return _scene(compat.GYM_ANT_XML, solver="newton", iterations=1,
+                  ls_iterations=4)
+
+
+@pytest.mark.cuda
+def test_position_kernel_humanoid_and_ant(humanoid, ant):
+    """Kernel A at nv 27 and nv 14 (tile (10, 3), mostly padding)."""
+    for m in (humanoid, ant):
+        assert pos_ops.tile_shape(m.nv) == (10, 3)
+        _check_position(m, _free_states(m, B, 0.5))
+
+
+@pytest.mark.cuda
+def test_cg_kernel_humanoid(humanoid):
+    """Kernel B on humanoid contact states: 729 constraint rows (the
+    shared-memory line search, cg_kernel<0>), condim 1 and 3, contacts
+    between two moving bodies.  Held as chip_smoke.py holds it, by
+    kernel_bench.check_cg_reruns: check_cg's per-env tolerance with a
+    budget of twice the envs the plain solve itself misses when re-run at
+    one rounding (no float32 evaluation meets check_cg's rule here)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    (args, st), active = kernel_bench.contact_states(humanoid, 256, gen,
+                                                     press=0.3)
+    assert cg_ops.kernel_name(st) == "cg_kernel<0>" and active > 0
+    assert st.nlimit + 4 * st.ncon == 21 + 4 * 177
+    before = launch_counts["cg"]
+    got = cg_ops.cg(*args, statics=st)
+    assert launch_counts["cg"] == before + 1
+    kernel_bench.check_cg_reruns(st, args, got)
+    for g, a in zip(got, cg_ops.cg(*args, statics=st)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_ant_newton_hessians(ant):
+    """Kernel C at n 14 on the ant's Newton Hessians, rtol 5e-3."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    H, active = kernel_bench.newton_hessians(ant, 256, gen, press=0.3)
+    assert active > 0 and H.shape == (256, 14, 14)
+    got = sweep_ops.inv_spd_sweep(H)
+    want = sweep_ops.inv_spd_sweep_plain(H)
+    _close(got, want, 5e-3, 1e-4 * float(want.abs().max()), "inverse")
+    assert float((H @ got - torch.eye(14, device="cuda")).abs().max()) < 5e-3
+
+
+@pytest.mark.cuda
+def test_ant_step_launches(ant):
+    """One RK4 physics step of the ant: four forward passes, each kernel
+    A once and kernel C once (Newton's H^-1, one iteration), B never."""
+    qpos = _free_states(ant, B, 0.3)
+    qpos[:, 2] -= 0.3
+    d = forward.make_data(ant, B, qpos=qpos)
+    launch_counts.clear()
+    d = forward.step(ant, d)
+    assert dict(launch_counts) == {"position": 4, "sweep": 4}
+    assert bool(torch.isfinite(d.qpos).all())

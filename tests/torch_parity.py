@@ -21,6 +21,8 @@ from vnl_tpu_torch.physics.model import Data as TData
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TWIN_XML = os.path.join(ROOT, "vnl_tpu_torch", "assets", "rodent_twin.xml")
+HUMANOID_XML = compat.DM_HUMANOID_XML     # dm_control suite/humanoid.xml
+ANT_XML = compat.GYM_ANT_XML              # gymnasium's ant.xml
 
 # tests/test_physics.py:221 _BOX_SCENE
 BOX_SCENE = """<mujoco>
@@ -66,6 +68,13 @@ def jax_box(gtype="box", size="0.1 0.12 0.08", pos="0 0 0.5",
             euler="0 0 0", **overrides):
     xml = BOX_SCENE.format(gtype=gtype, size=size, pos=pos, euler=euler)
     return mjcf.load_model(xml, overrides=overrides or None)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_scene(path, **overrides):
+    """A compiled vnl_tpu model of an MJCF file or string, with option
+    overrides."""
+    return mjcf.load_model(path, overrides=overrides or None)
 
 
 @functools.lru_cache(maxsize=None)

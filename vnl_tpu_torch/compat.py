@@ -22,6 +22,9 @@ BOX_CHAIN_MODEL = os.path.join(ASSETS, "box_chain_model.npz")   # nv = 7
 BALL_ARM_MODEL = os.path.join(ASSETS, "ball_arm_model.npz")     # nv = 7
 STAR96_MODEL = os.path.join(ASSETS, "star96_model.npz")         # nv = 96
 KEEPER_POLICY = os.path.join(ASSETS, "keeper_13fcbe84_policy.npz")
+# third-party scenes, copied verbatim (assets/LICENSES.md)
+DM_HUMANOID_XML = os.path.join(ASSETS, "dm_humanoid", "humanoid.xml")
+GYM_ANT_XML = os.path.join(ASSETS, "gym_ant.xml")
 
 Arrays = Union[str, Mapping[str, np.ndarray]]
 

@@ -147,6 +147,14 @@ def _device_model(st: CgStatics, device: torch.device) -> CgModel:
     return st.cache[key][0]
 
 
+def kernel_name(st: CgStatics) -> str:
+    """The instantiation of kernel B that runs this system (pick_kernel of
+    the source): the line search in registers, one warp, for up to 160
+    constraint rows; in shared memory above."""
+    return ("cg_kernel<5>" if st.nlimit + 4 * st.ncon <= 32 * 5
+            else "cg_kernel<0>")
+
+
 def resources(st: CgStatics, device="cuda") -> dict:
     """Registers per thread, local (spill) bytes, shared memory per block
     and resident blocks per SM of kernel B for this constraint system."""

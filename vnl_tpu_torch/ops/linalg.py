@@ -5,7 +5,9 @@ vnl_tpu/ops/linalg.py).
 plain position stage (ops/position.py) uses it, as the JAX package's
 _position_reference does.  ``refine_inv``: Newton-Schulz polish of a
 carried inverse, which the unfused position stage runs on every substep of
-a control step but the first (physics/inertia.py invert_mass_matrix)."""
+a control step but the first (physics/inertia.py invert_mass_matrix).
+``refine_inv_general``: the same polish without the symmetrisation, for the
+implicit integrator's unsymmetric (M - h qDeriv)."""
 
 from __future__ import annotations
 
@@ -47,3 +49,15 @@ def refine_inv(a: torch.Tensor, x0: torch.Tensor,
     for _ in range(iters):
         x = x @ (eye2 - a @ x)
     return 0.5 * (x + x.transpose(-1, -2))
+
+
+def refine_inv_general(a: torch.Tensor, x0: torch.Tensor,
+                       iters: int = 6) -> torch.Tensor:
+    """Newton-Schulz refinement X <- X (2I - A X) of an approximate inverse
+    of general (possibly unsymmetric) (..., n, n) matrices, not
+    symmetrised; converges quadratically while ||I - A x0|| < 1."""
+    eye2 = 2.0 * torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    x = x0
+    for _ in range(iters):
+        x = x @ (eye2 - a @ x)
+    return x

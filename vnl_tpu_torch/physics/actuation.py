@@ -12,6 +12,14 @@ from vnl_tpu_torch.physics.model import (BiasType, Data, DisableBit, DynType,
                                          GainType, Model)
 
 
+def activation_mask(m: Model) -> np.ndarray:
+    """Static (nu,) mask of the actuators with an activation state, read
+    from the model once (never inside a torch.func transform)."""
+    if "has_act" not in m.cache:
+        m.cache["has_act"] = m.actuator_actadr.cpu().numpy() >= 0
+    return m.cache["has_act"]
+
+
 def actuation(m: Model, d: Data):
     """Returns (actuator_force (B, nu), qfrc_actuator (B, nv),
     act_dot (B, na))."""
@@ -30,9 +38,7 @@ def actuation(m: Model, d: Data):
     length = d.qpos[:, m.index(m.jnt_qposadr[trn])] * gear
     velocity = d.qvel[:, dadr] * gear
 
-    if "has_act" not in m.cache:
-        m.cache["has_act"] = m.actuator_actadr.cpu().numpy() >= 0
-    has_act = m.cache["has_act"]
+    has_act = activation_mask(m)
     if m.na:
         act_of_u = d.act[:, torch.clamp(m.actuator_actadr.long(), min=0)]
         dyn_filter = m.const(m.actuator_dyntype == int(DynType.FILTER),

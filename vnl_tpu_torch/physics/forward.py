@@ -1,13 +1,17 @@
-"""Forward dynamics and semi-implicit Euler integration (PyTorch
-counterpart of vnl_tpu/physics/forward.py), batched over envs.
+"""Forward dynamics and integration (PyTorch counterpart of
+vnl_tpu/physics/forward.py), batched over envs.
 
 One substep: position stage (FK, com quantities, CRB mass matrix and its
 inverses), collision, constraints, velocity stage, actuation, smooth
-acceleration, the CG constraint solve (kernel B), then Euler with implicit
-joint damping.  The position stage has two configurations: fused (kernel A
-does all of it in one launch) and unfused (kinematics -> com_pos -> crb in
-plain PyTorch, the exact inverses by kernel C or a refinement of the
-carried ones).  RK4 and the implicit integrators are not ported.
+acceleration, the constraint solve (kernel B for CG, solver.py), optional
+sensors, then the model's integrator: Euler with implicit joint damping
+(implicitfast takes the same path), RK4 (three more forward passes a
+step) or full implicit ((M - h qDeriv)^-1 with qDeriv the
+torch.func.jacfwd of the velocity-dependent forces).  The position stage
+has two configurations: fused (kernel A does all of it in one launch, in
+every forward pass, RK4's included) and unfused (kinematics -> com_pos ->
+crb in plain PyTorch, the exact inverses by kernel C or a refinement of
+the carried ones).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from vnl_tpu_torch import math as vmath
 from vnl_tpu_torch.ops import position as position_ops
+from vnl_tpu_torch.ops.linalg import refine_inv_general
 from vnl_tpu_torch.physics import actuation as _actuation
 from vnl_tpu_torch.physics import collision as _collision
 from vnl_tpu_torch.physics import constraint as _constraint
@@ -62,7 +67,8 @@ def make_data(m: Model, batch: int, qpos: Optional[torch.Tensor] = None,
         actuator_force=z(m.nu), act_dot=z(m.na), qfrc_smooth=z(nv),
         qacc_smooth=z(nv), qfrc_constraint=z(nv), qacc=z(nv),
         contact_dist=z(m.ncon_max), contact_pos=z(m.ncon_max, 3),
-        contact_frame=z(m.ncon_max, 3, 3), contact_force=z(m.ncon_max, 4))
+        contact_frame=z(m.ncon_max, 3, 3), contact_force=z(m.ncon_max, 4),
+        sensordata=z(m.nsensordata))
 
 
 def fwd_position(m: Model, d: Data, refine_inverse: bool = False,
@@ -96,9 +102,12 @@ def fwd_velocity(m: Model, d: Data) -> Data:
 
 
 def forward(m: Model, d: Data, refine_inverse: bool = False,
-            fused_position: bool = True) -> Data:
+            fused_position: bool = True,
+            compute_sensors: bool = False) -> Data:
     """Full forward dynamics: derived fields and qacc.  ``refine_inverse``
-    is valid when d is the previous substep's output."""
+    is valid when d is the previous substep's output; ``compute_sensors``
+    evaluates the model's sensors into d.sensordata (off by default, as in
+    the JAX package: the envs read the state directly)."""
     pin_fp32()
     d, efc = fwd_position(m, d, refine_inverse, fused_position)
     d = fwd_velocity(m, d)
@@ -110,9 +119,15 @@ def forward(m: Model, d: Data, refine_inverse: bool = False,
     qacc, qfrc_constraint, con_force = _solver.solve(m, d, efc, qacc_smooth)
     if not efc.ncon:
         con_force = qacc.new_zeros(qacc.shape[0], m.ncon_max, 4)
-    return d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth,
-                     qacc=qacc, qfrc_constraint=qfrc_constraint,
-                     contact_force=con_force)
+    elif con_force.shape[-1] == 3:             # elliptic rows -> pad
+        con_force = torch.nn.functional.pad(con_force, (0, 1))
+    d = d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth,
+                  qacc=qacc, qfrc_constraint=qfrc_constraint,
+                  contact_force=con_force)
+    if compute_sensors and m.nsensordata:
+        from vnl_tpu_torch.physics import sensor as _sensor
+        d = d.replace(sensordata=_sensor.sensors(m, d))
+    return d
 
 
 def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
@@ -149,12 +164,74 @@ def integrate(m: Model, d: Data) -> Data:
                      act=act)
 
 
+def _vel_forces(m: Model, d: Data, qvel: torch.Tensor) -> torch.Tensor:
+    """Velocity-dependent smooth forces at (d.qpos, qvel): passive
+    - bias + actuator."""
+    d2 = d.replace(qvel=qvel)
+    cvel, cdof_dot = _rne.com_vel(m, d2)
+    qfrc_bias = _rne.rne(m, d2, cvel, cdof_dot)
+    _, qfrc_act, _ = _actuation.actuation(m, d2)
+    return _rne.passive(m, d2) - qfrc_bias + qfrc_act
+
+
+def _implicit_integrate(m: Model, d: Data) -> Data:
+    """mj_implicit: qvel += h (M - h qDeriv)^-1 (qfrc_smooth +
+    qfrc_constraint), qDeriv = d(velocity forces)/d qvel by
+    torch.func.jacfwd (the envs are independent, so the Jacobian of the
+    batch sum is each env's own), the inverse by six Newton-Schulz steps
+    seeded with (M + h diag(B))^-1."""
+    h = m.opt.timestep
+    _actuation.activation_mask(m)       # static tables, outside the transform
+    jac = torch.func.jacfwd(lambda v: _vel_forces(m, d, v).sum(0))(d.qvel)
+    A = d.qM - h * jac.permute(1, 0, 2)               # (B, nv, nv)
+    Ainv = refine_inv_general(A, d.qMhBinv, iters=6)
+    qacc = torch.einsum("nij,nj->ni", Ainv, d.qfrc_smooth + d.qfrc_constraint)
+    qvel = d.qvel + h * qacc
+    act = d.act + h * d.act_dot if m.na else d.act
+    return d.replace(qpos=_integrate_pos(m, d.qpos, qvel, h), qvel=qvel,
+                     act=act)
+
+
+_RK4_A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def _rk4(m: Model, d: Data, fused_position: bool = True) -> Data:
+    """Classic 4th-order Runge-Kutta (mj_RungeKutta): d arrives with the
+    first stage's forward dynamics; each further stage runs a full forward
+    pass at the tableau-shifted state.  The state derivative is (qvel,
+    qacc, act_dot); no implicit damping."""
+    h = m.opt.timestep
+    qpos0, qvel0, act0 = d.qpos, d.qvel, d.act
+    F = [(d.qvel, d.qacc, d.act_dot)]
+
+    def comb(coeffs):
+        terms = [(c, F[j]) for j, c in enumerate(coeffs) if c != 0.0]
+        dqvel = sum(c * f[0] for c, f in terms)
+        dqacc = sum(c * f[1] for c, f in terms)
+        dact = sum(c * f[2] for c, f in terms) if m.na else d.act_dot
+        return dqvel, dqacc, dact
+
+    def shifted(coeffs):
+        dqvel, dqacc, dact = comb(coeffs)
+        return dict(qpos=_integrate_pos(m, qpos0, dqvel, h),
+                    qvel=qvel0 + h * dqacc,
+                    act=act0 + h * dact if m.na else act0)
+
+    for i in range(3):
+        d = forward(m, d.replace(**shifted(_RK4_A[i][:i + 1])),
+                    fused_position=fused_position)
+        F.append((d.qvel, d.qacc, d.act_dot))
+    return d.replace(**shifted(_RK4_B))
+
+
 def step(m: Model, d: Data, refine_inverse: bool = False,
          fused_position: bool = True) -> Data:
-    """One physics step: forward dynamics + Euler integration."""
-    if m.opt.integrator not in (int(IntegratorType.EULER),
-                                int(IntegratorType.IMPLICITFAST)):
-        raise NotImplementedError(
-            f"integrator {IntegratorType(m.opt.integrator).name} is not "
-            "ported yet")
-    return integrate(m, forward(m, d, refine_inverse, fused_position))
+    """One physics step: forward dynamics + the model's integrator (Euler
+    and implicitfast through ``integrate``, RK4, full implicit)."""
+    d = forward(m, d, refine_inverse, fused_position)
+    if m.opt.integrator == int(IntegratorType.IMPLICIT):
+        return _implicit_integrate(m, d)
+    if m.opt.integrator == int(IntegratorType.RK4):
+        return _rk4(m, d, fused_position)
+    return integrate(m, d)

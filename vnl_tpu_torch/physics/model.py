@@ -72,8 +72,8 @@ class IntegratorType(enum.IntEnum):
 
 
 class SensorType(enum.IntEnum):
-    """Sensor kinds the MJCF compiler records (the sensors themselves are
-    not ported yet)."""
+    """Sensor kinds the MJCF compiler records and physics/sensor.py
+    evaluates."""
 
     TOUCH = 0
     ACCELEROMETER = 1
@@ -294,6 +294,7 @@ class Data:
     contact_pos: torch.Tensor      # (B, ncon_max, 3)
     contact_frame: torch.Tensor    # (B, ncon_max, 3, 3)
     contact_force: torch.Tensor    # (B, ncon_max, 4)
+    sensordata: torch.Tensor       # (B, nsensordata)
 
     def replace(self, **kwargs) -> "Data":
         return dataclasses.replace(self, **kwargs)

@@ -74,9 +74,11 @@ def build_env(cfg, for_eval=False, device="cuda"):
         return envs_lib.get_environment(name, reference_clip=clip,
                                         **env_args)
     if name == "humanoidtracking":
-        raise NotImplementedError(
-            "HumanoidTracking is not ported yet (ROADMAP.md §1, the "
-            "ant / humanoid / walker envs)")
+        if env_cfg.get("clip_path"):
+            clip = load_clip(env_cfg["clip_path"], device=device)
+            return envs_lib.get_environment(name, reference_clip=clip,
+                                            **env_args)
+        return envs_lib.get_environment(name, **env_args)  # built-in clip
     return envs_lib.get_environment(name, **env_args)
 
 
