@@ -74,6 +74,27 @@ Phases, in order; any failure exits non-zero:
      least 4 x 5 x 20 launches, C at least once per forward pass (as
      often as A), B never; then train(...) at 1024 envs, networks (1024,
      1024), for two training steps (one interval, episode 30).
+ 10. rendering: the overlay of phase 7's first eval-callback episode (the
+     agent and its reference ghost, 320 x 240) rendered by
+     SoftwareRenderer on the card, on the callback's render thread and
+     stream, against the same frames rendered on the CPU (at most 0.5% of
+     the pixels more than one level apart); make_egocentric_camera on a
+     1024-env twin Data at 64 x 64 on the card against 8 of those envs on
+     the CPU (within 1e-4 on 99.5% of the pixels); ms per overlay frame
+     (card, CPU), ms per camera call, peak memory; and every render job
+     the command lines of phases 7-8 started (render_eval: true) must end
+     in a video path, or in a render-error caused by nothing but the
+     missing imageio module;
+ 11. data parallelism: train(...) at 1024 envs, the fused stage, one
+     training step at the bench's hyperparameters, first without a process
+     group, then with num_devices=1 under a one-rank NCCL group, where the
+     gradients, the normaliser and the metrics go through all-reduces and
+     assert_is_replicated and synchronize_hosts run; the params of the two
+     runs must be equal bit for bit; prints env-steps/s of both, the
+     all-reduces per SGD update and their device time; then the command
+     line through `python -m torch.distributed.run --nproc_per_node=1 -m
+     vnl_tpu_torch.train` at the twin config's sizes for one interval,
+     which must exit with 0.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
 twin's A, B and C; A and B at the humanoid's shapes; A and C at the ant's)
@@ -466,6 +487,11 @@ def check_compile(compile_fn, want, device, label):
         v = getattr(m, f.name)
         if f.name == "cache":
             continue
+        if f.name == "skin_file":      # a field only for a model with one
+            if v != (str(want[f.name]) if f.name in want else None):
+                raise AssertionError(f"skin_file of {label}: {v}")
+            seen.update({f.name} & set(want))
+            continue
         if f.name == "opt":
             for g in dataclasses.fields(v):
                 w = want[f"opt_{g.name}"]
@@ -535,6 +561,24 @@ TWIN_ARGS = [f"env_config={ROOT}/vnl_tpu_torch/configs/rodent_twin_config.yaml",
              f"env.env_args.mjcf_path={TWIN_XML}"]
 
 
+CALLBACKS = []     # every EvalCallback the command lines made, in order
+
+
+def recording_eval_callback(*a, **kw):
+    """The command line's EvalCallback, recorded with its last episode in
+    CALLBACKS, for phase 10."""
+    from vnl_tpu_torch.training.eval_callback import EvalCallback
+
+    class Recording(EvalCallback):
+        def rollout(self, *ra, **rkw):
+            self.last_traj = super().rollout(*ra, **rkw)
+            return self.last_traj
+
+    cb = Recording(*a, **kw)
+    CALLBACKS.append(cb)
+    return cb
+
+
 def run_cli(tag, extra, device, expect_from=0, env_args=TWIN_ARGS):
     """main() of the command line with an env config (``env_args``, the
     twin's by default); returns (report, launch counts, run dir, last
@@ -549,6 +593,7 @@ def run_cli(tag, extra, device, expect_from=0, env_args=TWIN_ARGS):
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
+    cli.EvalCallback = recording_eval_callback
     _, _, metrics = cli.main(args, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -860,6 +905,237 @@ def phase_ant(device):
             {"position_ant": errs_a, "sweep_ant_newton": errs_c})
 
 
+PIXEL_SHARE = 0.005   # frames: at most this share > 1 level apart
+
+
+def frames_off_share(got, want) -> float:
+    """Share of the pixels of two uint8 frame stacks more than one level
+    apart in any channel (tests/test_torch_render.py's tolerance)."""
+    off = (got.int() - want.int()).abs().amax(-1) > 1
+    return float(off.float().mean())
+
+
+def phase_render(device):
+    """Phase 10; returns its report."""
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.kernel_bench import random_states
+    from vnl_tpu_torch.physics import forward, kinematics
+    from vnl_tpu_torch.render import make_egocentric_camera
+    from vnl_tpu_torch.render.software import overlay_frames
+    t_phase = time.perf_counter()
+    rep = {}
+    # every render job of the command lines: a video, or no imageio
+    jobs = []
+    for cb in CALLBACKS:
+        res = cb.render_result(timeout=600)
+        jobs.append(res)
+        ok = res is not None and (
+            os.path.exists(res) or
+            res == "render-error: No module named 'imageio'")
+        if not ok:
+            raise AssertionError(f"eval-callback render job: {res!r}")
+    rep["render_jobs"] = jobs
+    cb = CALLBACKS[0]                 # phase 7's first run, the twin
+    traj = cb.last_traj
+    qa, qr = cb.overlay_inputs(traj["qpos"], traj["start_frame"],
+                               traj["clip_id"])
+    model = cb._env.sys
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # on the callback's render thread and stream, as its jobs run
+    frames = cb.in_render_thread(
+        lambda: overlay_frames(model, qa, qr, device=device)).result()
+    t0 = time.perf_counter()
+    frames = cb.in_render_thread(
+        lambda: overlay_frames(model, qa, qr, device=device)).result()
+    card_s = time.perf_counter() - t0
+    rep["overlay_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    t0 = time.perf_counter()
+    cpu = overlay_frames(model, qa, qr, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n = frames.shape[0]
+    if frames.shape != (n, 240, 320, 3) or n != len(qa) or n < 2:
+        raise AssertionError(f"overlay frames {tuple(frames.shape)}")
+    share = frames_off_share(frames.cpu(), cpu)
+    if share > PIXEL_SHARE:
+        raise AssertionError(f"overlay: {share:.4%} of the pixels differ "
+                             "from the CPU's frames")
+    if float((frames != 255).any(-1).float().mean()) < 0.5:
+        raise AssertionError("overlay frames are blank")
+    rep["overlay"] = dict(frames=n, width=320, height=240,
+                          off_share=share, ms_per_frame=1e3 * card_s / n,
+                          cpu_ms_per_frame=1e3 * cpu_s / n)
+
+    # the egocentric camera on 1024 twin states
+    m = compat.model_from_numpy(compat.TWIN_MODEL, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    qpos = random_states(m, BATCH, gen)
+    d = kinematics.kinematics(m, forward.make_data(m, BATCH, qpos))
+    camera = make_egocentric_camera(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    img = camera(d)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        img = camera(d)
+    torch.cuda.synchronize()
+    cam_ms = 1e3 * (time.perf_counter() - t0) / reps
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    m_cpu = compat.model_from_numpy(compat.TWIN_MODEL, device="cpu")
+    d8 = d.replace(**{f: getattr(d, f)[:8].cpu() for f in (
+        "xpos", "xmat", "geom_xpos", "geom_xmat")})
+    want = make_egocentric_camera(m_cpu)(d8)
+    err = (img[:8].cpu() - want).abs()
+    within = float((err <= 1e-4).all(-1).float().mean())
+    if img.shape != (BATCH, 64, 64, 3) or within < 0.995 or \
+            not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"camera: {tuple(img.shape)}, {within:.4%} of "
+                             "the pixels within 1e-4 of the CPU's")
+    rep["camera"] = dict(envs=BATCH, width=64, height=64,
+                         geoms=m.ngeom,
+                         ms_per_call=cam_ms, peak_mb=peak,
+                         within_1e4=within, max_abs_err=float(err.max()),
+                         lit_share=float((img > 0.15).float().mean()))
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"render": rep}), flush=True)
+    return rep
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_data_parallel(device):
+    """Phase 11; returns (launch counts of its runs, report)."""
+    import subprocess
+    import torch.distributed as dist
+    from vnl_tpu_torch import bench, models
+    from vnl_tpu_torch.envs import make_twin_env
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from vnl_tpu_torch.parallel import mesh
+    from vnl_tpu_torch.training import gradients, train
+    t_phase = time.perf_counter()
+    kw = dict(bench.TRAIN_KW, episode_length=EVAL_EPISODE)
+    per_step = kw["batch_size"] * kw["unroll_length"] * kw["num_minibatches"]
+    updates = kw["num_minibatches"] * kw["num_updates_per_batch"]
+
+    def one_step(**extra):
+        seen, made = [], {}
+
+        def factory(*a, **fkw):
+            made["net"] = models.make_intention_ppo_networks(*a, **fkw)
+            return made["net"]
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        mesh.reset_collective_counts()
+        _, (norm, policy), _ = train(
+            make_twin_env(device=device), num_timesteps=per_step,
+            num_evals=1, network_factory=factory, device=device,
+            progress_fn=lambda step, mt: seen.append(mt), **kw, **extra)
+        torch.cuda.synchronize()
+        params = dict({f"policy.{k}": v for k, v in policy.items()},
+                      **{f"normalizer.{k}": getattr(norm, k) for k in (
+                          "count", "mean", "summed_variance", "std")})
+        return (params, seen[-1], dict(launch_counts),
+                dict(mesh.collective_counts), made["net"])
+
+    plain, m_plain, c_plain, _, _ = one_step()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        grouped, m_dp, c_dp, coll, net = one_step(num_devices=1)
+        # the all-reduce of one SGD update's gradients, on its own
+        for p in net.parameters():
+            p.grad = torch.ones_like(p)
+        params = list(net.parameters())
+        for _ in range(3):
+            gradients.all_reduce_gradients(params)
+        torch.cuda.synchronize()
+        reps = 20
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                gradients.all_reduce_gradients(params)
+            torch.cuda.synchronize()
+        # device time of every kernel and copy of the all-reduce step (the
+        # concatenation, NCCL's work, the division, the copy back)
+        dev_us = {e.key: getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0)
+                  for e in prof.key_averages()}
+        dev_us = {k: v for k, v in dev_us.items() if v > 0}
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            gradients.all_reduce_gradients(params)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+        nparam = sum(p.numel() for p in params)
+    finally:
+        dist.destroy_process_group()
+    def bits(t):
+        return t.dtype, tuple(t.shape), t.cpu().numpy().tobytes()
+
+    diff = [k for k in plain if bits(plain[k]) != bits(grouped[k])]
+    if diff or sorted(plain) != sorted(grouped):
+        raise AssertionError(f"one-rank NCCL training differs from the run "
+                             f"without a group in {diff}")
+    want = {"grad_all_reduce": updates, "normalizer_all_reduce": 2,
+            "metrics_all_reduce": 1}
+    if any(coll.get(k, 0) != v for k, v in want.items()) or \
+            coll.get("all_gather", 0) < 2 or coll.get("all_reduce", 0) < 1:
+        raise AssertionError(f"collectives of the one-rank run: {coll}")
+    for tag, c in (("plain", c_plain), ("one-rank", c_dp)):
+        if c.get("position", 0) < 100 or c.get("cg", 0) < 100 or \
+                c.get("sweep", 0):
+            raise AssertionError(f"{tag} run launches {c}")
+    rep = dict(
+        env_steps_per_s=m_plain["training/sps"],
+        env_steps_per_s_one_rank_nccl=m_dp["training/sps"],
+        sgd_s_per_training_step=m_plain["training/sgd_s_per_step"],
+        sgd_s_per_training_step_one_rank=m_dp["training/sgd_s_per_step"],
+        params_equal_bitwise=True, compared=len(plain),
+        collectives=coll, sgd_updates=updates,
+        all_reduces_per_update=coll["grad_all_reduce"] / updates,
+        grad_all_reduce_floats=nparam,
+        grad_all_reduce_device_ms=1e-3 * sum(dev_us.values()) / reps,
+        grad_all_reduce_nccl_device_ms=1e-3 * sum(
+            v for k, v in dev_us.items() if "nccl" in k.lower()) / reps,
+        grad_all_reduce_device_ops=sorted(dev_us),
+        grad_all_reduce_wall_ms=wall_ms)
+
+    # the command line under torch.distributed.run, one process
+    out = os.path.join(CLI_DIR, "torchrun")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+           "--nproc_per_node=1", "--master_addr=127.0.0.1",
+           f"--master_port={free_port()}", "-m", "vnl_tpu_torch.train"] + \
+        TWIN_ARGS + [f"train.checkpoint_dir={out}/ck",
+                     f"train.log_dir={out}/logs", "train.episode_length=30",
+                     "train.num_timesteps=20480", "train.eval_every=20480"]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    rep["torchrun_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"torch.distributed.run: exit {proc.returncode}")
+    recs = _records(os.path.join(out, "logs"))
+    last = [r for r in recs if "training/sps" in r][-1]
+    rep["torchrun_env_steps_per_s"] = last["training/sps"]
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"data_parallel": rep}), flush=True)
+    return add_counts(c_plain, c_dp), rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script drives "
@@ -897,12 +1173,14 @@ def main() -> int:
     info["cli"], counts_cli = phase_cli(device)
     rows_h, counts_h, info["humanoid"], errs_h = phase_humanoid(device)
     rows_ant, counts_ant, info["ant"], errs_ant = phase_ant(device)
+    info["render"] = phase_render(device)
+    counts_dp, info["data_parallel"] = phase_data_parallel(device)
     twin_counts = add_counts(counts, counts_fused, counts_unfused,
-                             *counts_cli)
+                             *counts_cli, counts_dp)
     kernels = [row_a, row_b, row_c] + rows_h + rows_ant
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
-        # phases 4, 6, 7; the humanoid's: 8; the ant's: 9), each path
+        # phases 4, 6, 7, 11; the humanoid's: 8; the ant's: 9), each path
         # counted from zero on its own
         paths = (counts_h if row["name"].endswith("humanoid") else
                  counts_ant if "ant" in row["name"] else twin_counts)

@@ -4,7 +4,7 @@ against the root train.py of the JAX package.
 - ``load_config`` and ``apply_overrides`` equal vnl_tpu.utils' (values
   and their types) with every config of configs/ and
   vnl_tpu_torch/configs/ as the env group; the port's configs are the
-  JAX package's but for render_eval and the assets' paths.
+  JAX package's but for the assets' paths.
 - ``build_env`` against root ``train.build_env`` on the same config, for
   "rodent" and "rodent_multiclip", for training and for evaluation, both
   on the twin's XML and a clip pickle: every model field, the clip (or
@@ -77,14 +77,15 @@ def test_load_config_and_overrides_match(env_cfg):
 
 
 def test_port_configs_are_the_jax_ones():
-    """The port's configs are copies: the train config differs only in
-    render_eval, the env config only in its assets' paths."""
+    """The port's configs are copies: the train config is the same
+    (render_eval true in both), the env config differs only in its assets'
+    paths."""
     port, jax_cfg = (f"{tp.ROOT}/vnl_tpu_torch/configs",
                      f"{tp.ROOT}/configs")
     got = load_config(f"{port}/train_config.yaml")
     want = jload(f"{jax_cfg}/train_config.yaml")
     assert want["train"].pop("render_eval") is True
-    assert got["train"].pop("render_eval") is False
+    assert got["train"].pop("render_eval") is True
     assert same(got, want)
     got = load_config(f"{port}/env_config.yaml")["env"]
     want = jload(f"{jax_cfg}/env_config.yaml")["env"]
@@ -227,12 +228,13 @@ def test_main_end_to_end(tmp_path):
 
 
 def test_unported_paths_raise():
-    """Rendering is the one path of the command line still to port (the
-    humanoid, which raised here before, is built by
-    test_main_humanoid_end_to_end)."""
-    from vnl_tpu_torch.training.eval_callback import EvalCallback
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EvalCallback(None, ".", render=True)
+    """Every path of the command line is ported (rendering, which raised
+    here before, is held by tests/test_torch_render.py); what still raises
+    is what the JAX trainer refuses too: a device count that is not the
+    process count, and, across processes, adaptive clip weights."""
+    from vnl_tpu_torch.training import train
+    with pytest.raises(ValueError, match="num_devices=2"):
+        train(None, 1, 1, num_devices=2, device="cpu")
 
 
 HUMANOID_CONFIG = f"{tp.ROOT}/vnl_tpu_torch/configs/humanoid_config.yaml"

@@ -1,7 +1,9 @@
 """Kernels A, B and C against their plain PyTorch versions on a CUDA device
 (marked ``cuda``; skipped without a card, since a CUDA kernel has no CPU
-mode).  Imports neither JAX nor vnl_tpu, so it also runs where only the
-port is installed:
+mode); the renderer and the egocentric camera on the card against the
+same code on the CPU; and the trainer under a one-rank NCCL process group
+against the same run without a group, bit for bit.  Imports neither JAX
+nor vnl_tpu, so it also runs where only the port is installed:
 
   python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
@@ -352,3 +354,91 @@ def test_ant_step_launches(ant):
     d = forward.step(ant, d)
     assert dict(launch_counts) == {"position": 4, "sweep": 4}
     assert bool(torch.isfinite(d.qpos).all())
+
+
+# ---- rendering and data parallelism ----
+
+def _twin_data(m, batch, seed):
+    from vnl_tpu_torch.physics import kinematics
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qpos = kernel_bench.random_states(m, batch, gen)
+    return kinematics.kinematics(m, forward.make_data(m, batch, qpos))
+
+
+@pytest.mark.cuda
+def test_overlay_frames_card_against_cpu(model):
+    """The twin's agent-vs-ghost overlay at 320 x 240 on the card and on
+    the CPU: at most 0.5% of the pixels more than one level apart (the
+    CPU parity tests' tolerance)."""
+    from vnl_tpu_torch.render.software import overlay_frames
+    q = _twin_data(model, 6, 3).qpos.double().cpu().numpy()
+    ghost = q.copy()
+    ghost[:, :3] += np.array([0.04, -0.03, 0.0])
+    card = overlay_frames(model, q, ghost)
+    assert card.device.type == "cuda" and card.shape == (6, 240, 320, 3)
+    cpu = overlay_frames(model, q, ghost, device="cpu")
+    off = (card.cpu().int() - cpu.int()).abs().amax(-1) > 1
+    assert float(off.float().mean()) <= 0.005
+
+
+@pytest.mark.cuda
+def test_egocentric_camera_card_against_cpu(model):
+    """make_egocentric_camera at 256 envs on the card, 8 of them on the
+    CPU: within 1e-4 on at least 99.5% of the pixels."""
+    from vnl_tpu_torch.render import make_egocentric_camera
+    d = _twin_data(model, 256, 4)
+    img = make_egocentric_camera(model)(d)
+    assert img.shape == (256, 64, 64, 3) and img.device.type == "cuda"
+    m_cpu = compat.model_from_numpy(compat.TWIN_MODEL, device="cpu")
+    d8 = d.replace(**{f: getattr(d, f)[:8].cpu() for f in (
+        "xpos", "xmat", "geom_xpos", "geom_xmat")})
+    want = make_egocentric_camera(m_cpu)(d8)
+    within = ((img[:8].cpu() - want).abs() <= 1e-4).all(-1)
+    assert float(within.float().mean()) >= 0.995
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_training_is_the_plain_run(model):
+    """train(num_devices=1) under a one-rank NCCL group (the gradients,
+    the normaliser and the metrics through all-reduces) gives the params
+    of the same run without a group, bit for bit."""
+    import functools
+    import socket
+
+    import torch.distributed as dist
+
+    from vnl_tpu_torch import models
+    from vnl_tpu_torch.envs import make_twin_env
+    from vnl_tpu_torch.training import train
+    factory = functools.partial(
+        models.make_intention_ppo_networks, intention_latent_size=8,
+        encoder_layer_sizes=(64,), decoder_layer_sizes=(64,),
+        value_hidden_layer_sizes=(64,))
+
+    def run(**extra):
+        _, (norm, policy), _ = train(
+            make_twin_env(device="cuda"), num_timesteps=2 * 4 * 8 * 4,
+            episode_length=10, num_envs=32, num_eval_envs=4,
+            unroll_length=8, batch_size=8, num_minibatches=4,
+            num_updates_per_batch=2, num_evals=1,
+            normalize_observations=True, network_factory=factory,
+            device="cuda", **extra)
+        out = {k: v.cpu() for k, v in policy.items()}
+        out.update({k: getattr(norm, k).cpu() for k in (
+            "count", "mean", "summed_variance", "std")})
+        return out
+
+    plain = run()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        grouped = run(num_devices=1)
+    finally:
+        dist.destroy_process_group()
+    assert sorted(plain) == sorted(grouped)
+    for k in plain:
+        assert plain[k].numpy().tobytes() == grouped[k].numpy().tobytes(), k

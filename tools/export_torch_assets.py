@@ -223,7 +223,8 @@ def model_to_numpy(m) -> dict:
             for g in dataclasses.fields(v):
                 out[f"opt_{g.name}"] = np.asarray(getattr(v, g.name))
         elif f.name == "skin_file":
-            continue
+            if v is not None:      # left out for a model without a skin
+                out[f.name] = np.asarray(v, dtype=np.str_)
         elif isinstance(v, tuple) and (not v or isinstance(v[0], str)):
             out[f.name] = np.asarray(v, dtype=np.str_)
         else:

@@ -8,7 +8,11 @@ contact solve (kernel B) as hand-written Hopper kernels (``csrc/``), the
 wrappers, the intention policy and value network, the intention-PPO
 learner (``training.train``) with its evaluator, full-state checkpoints
 and eval callback, the MJCF compiler (``mjcf``), clip IO and
-preprocessing (``data``), and the training command line
-(``python -m vnl_tpu_torch.train``).  Entry points run on ``cuda`` unless
-the caller passes another device.
+preprocessing (``data``), the training command line
+(``python -m vnl_tpu_torch.train``), the humanoid and ant envs, rendering
+(``render``: the eval overlay video, skins, the batched egocentric
+camera), the walker metadata (``envs.walker``), the profiler hooks
+(``utils.profiler``) and data parallelism over torch.distributed
+(``parallel``, ``train(num_devices=)``, one process per GPU).  Entry
+points run on ``cuda`` unless the caller passes another device.
 """

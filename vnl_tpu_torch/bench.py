@@ -13,6 +13,12 @@ name and its power limit.
 
   python3 -m vnl_tpu_torch.bench [--fused-position 0|1] [--steps N]
 
+Data-parallel over N GPUs of one host, one process each, 1024 envs and a
+batch of 32 per GPU (rank 0 prints the line, with the process count;
+env-steps/s counts the envs of all ranks):
+
+  python3 -m torch.distributed.run --nproc_per_node=N -m vnl_tpu_torch.bench
+
 Exits non-zero without a CUDA device.
 """
 
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 
@@ -60,6 +67,8 @@ def run(fused_position: bool, steps: int, **overrides) -> dict:
     train(env, num_timesteps=2 * steps * per_step, num_evals=3,
           progress_fn=lambda step, m: seen.append((step, m)),
           device="cuda", **kw)
+    if not seen:               # a rank other than 0: rank 0 reports
+        return {}
     step, last = seen[-1]
     return {
         "fused_position": fused_position,
@@ -84,12 +93,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("vnl_tpu_torch.bench: no CUDA device", file=sys.stderr)
         return 1
+    from vnl_tpu_torch import parallel
     from vnl_tpu_torch.ops import reset_launch_counts
+    from vnl_tpu_torch.parallel import mesh
+    if "LOCAL_RANK" in os.environ:               # torch.distributed.run
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    parallel.initialize(device="cuda")
+    world = mesh.world_size()
     reset_launch_counts()
-    out = run(bool(args.fused_position), args.steps)
-    out["device"] = torch.cuda.get_device_name(0)
-    out["name_and_power_limit"] = gpu_name_and_power_limit()
-    print(json.dumps(out))
+    out = run(bool(args.fused_position), args.steps, num_devices=world,
+              num_envs=NUM_ENVS * world,
+              batch_size=TRAIN_KW["batch_size"] * world)
+    if mesh.rank() == 0:
+        out["processes"] = world
+        out["device"] = torch.cuda.get_device_name(0)
+        out["name_and_power_limit"] = gpu_name_and_power_limit()
+        print(json.dumps(out), flush=True)
+    if world > 1:
+        torch.distributed.destroy_process_group()
     return 0
 
 

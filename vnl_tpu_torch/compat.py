@@ -54,8 +54,10 @@ def model_from_numpy(src: Arrays, device="cuda") -> model_lib.Model:
         v = np.asarray(a[f"opt_{f.name}"])
         opt[f.name] = tuple(float(x) for x in v) if v.ndim else v.item()
     kw = {"opt": model_lib.Option(**opt)}
+    if "skin_file" in a:       # written only for a model that has a skin
+        kw["skin_file"] = str(a["skin_file"])
     for f in dataclasses.fields(model_lib.Model):
-        if f.name in kw or f.name == "cache":
+        if f.name in kw or f.name in ("cache", "skin_file"):
             continue
         v = np.asarray(a[f.name])
         if f.type == "int":

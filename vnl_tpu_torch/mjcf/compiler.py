@@ -664,6 +664,10 @@ class _Compiler:
             key_qpos[i, :len(kq)] = kq
 
         arr = lambda x: np.asarray(x, dtype=np.float32)
+        # the skin's path is the last field, and only a model with a skin
+        # has it (as model_to_numpy writes a JAX Model)
+        skin = ({} if spec.skin_file is None
+                else {"skin_file": spec.skin_file})
         return _to_numpy(dict(
             nq=nq, nv=nv, nu=nu, na=na, nbody=nbody, njnt=njnt, ngeom=ngeom,
             nsite=nsite, npair=npair, ncon_max=ncon_max, nlimit=nlimit,
@@ -726,7 +730,7 @@ class _Compiler:
             actuator_actadr=np.asarray(actuator_actadr),
             pair_friction=arr(pair_friction), pair_solref=arr(pair_solref),
             pair_solimp=arr(pair_solimp), pair_margin=arr(pair_margin),
-            pair_gap=arr(pair_gap), key_qpos=arr(key_qpos),
+            pair_gap=arr(pair_gap), key_qpos=arr(key_qpos), **skin,
         ))
 
     def _compile_option(self) -> Option:

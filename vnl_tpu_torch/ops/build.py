@@ -60,10 +60,13 @@ def build_all() -> Dict[str, str]:
     if todo:
         nvcc = _nvcc()
         procs = {}
+        # a temporary of this process's own: the ranks of a data-parallel
+        # launch may build the same library at once
+        tmp = f".{os.getpid()}.tmp"
         for n, t in todo.items():
             cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-shared",
                    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                   "-o", t + ".tmp", os.path.join(CSRC, f"{n}.cu")]
+                   "-o", t + tmp, os.path.join(CSRC, f"{n}.cu")]
             procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
         errors = []
@@ -73,7 +76,7 @@ def build_all() -> Dict[str, str]:
             if p.returncode != 0:
                 errors.append(f"nvcc failed on {n}.cu:\n{log}")
             else:
-                os.replace(todo[n] + ".tmp", todo[n])
+                os.replace(todo[n] + tmp, todo[n])
         if errors:
             raise RuntimeError("\n".join(errors))
     return targets

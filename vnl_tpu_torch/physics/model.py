@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,6 +229,9 @@ class Model:
     key_qpos: torch.Tensor
     # device copies of the numpy tables, made once (see ``table``)
     cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # absolute path of the model's binary <skin> asset, if any (visual
+    # only: render/software.py reads it for skinned eval videos)
+    skin_file: Optional[str] = None
 
     @property
     def device(self) -> torch.device:

@@ -10,6 +10,17 @@ final params.  Overrides use dotted paths; the env group is swapped with
       env_config=vnl_tpu_torch/configs/rodent_twin_config.yaml \\
       train.num_timesteps=40960 train.restore_checkpoint=<run>/state/N.npz
 
+On N GPUs of one host, one process each (the port's data parallelism;
+``train.num_envs`` and ``train.batch_size`` are per GPU and multiplied by
+the number of processes, as the JAX package multiplies them by its device
+count):
+
+  python -m torch.distributed.run --nproc_per_node=N -m vnl_tpu_torch.train \\
+      env_config=vnl_tpu_torch/configs/rodent_twin_config.yaml
+
+Each process then runs on ``cuda:LOCAL_RANK``; rank 0 alone logs,
+evaluates, renders and writes checkpoints.
+
 Paths in the configs are relative to the working directory.  A run writes
 ``<checkpoint_dir>/<run id>/``: ``<steps>.npz`` params per evaluation,
 ``state/<steps>.npz`` full-state checkpoints and ``finished.npz``; the
@@ -29,8 +40,9 @@ import torch
 
 from vnl_tpu_torch import envs as envs_lib
 from vnl_tpu_torch import models as models_lib
-from vnl_tpu_torch import training
+from vnl_tpu_torch import parallel, training
 from vnl_tpu_torch.data import load_clip, process_clip, process_recording
+from vnl_tpu_torch.parallel import mesh
 from vnl_tpu_torch.training import checkpoint as ckpt_lib
 from vnl_tpu_torch.training.eval_callback import EvalCallback
 from vnl_tpu_torch.utils import MetricsLogger, apply_overrides, load_config
@@ -84,6 +96,12 @@ def build_env(cfg, for_eval=False, device="cuda"):
 
 def main(argv=None, device="cuda"):
     argv = sys.argv[1:] if argv is None else argv
+    if torch.device(device).type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"   # one GPU a rank
+        torch.cuda.set_device(device)
+    own_group = mesh.process_group() is None
+    parallel.initialize(device=device)
+    world, rank = mesh.world_size(), mesh.rank()
     env_cfg = os.path.join(CONFIGS, "env_config.yaml")
     for a in argv:  # swap env-config groups, hydra-style: env_config=<path>
         if a.startswith("env_config="):
@@ -95,13 +113,15 @@ def main(argv=None, device="cuda"):
 
     env = build_env(cfg, device=device)
     eval_env = build_env(cfg, for_eval=True, device=device)
-    # one device: the JAX package multiplies these by its device count
-    num_envs = tc["num_envs"] * 1
-    batch_size = tc["batch_size"] * 1
+    # scale the env count and the batch by the processes (one GPU each),
+    # as the JAX package scales them by its device count
+    num_envs = tc["num_envs"] * world
+    batch_size = tc["batch_size"] * world
 
     run_id = str(uuid.uuid4())[:8]
     model_path = os.path.join(tc["checkpoint_dir"], run_id)
-    logger = MetricsLogger(
+    # the trainer calls progress and the params callback on rank 0 only
+    logger = None if rank else MetricsLogger(
         project=f"vnl_tpu_torch_{tc['task_name']}", run_name=run_id,
         config=cfg, out_dir=tc.get("log_dir", "./logs"),
         use_wandb=bool(tc.get("use_wandb", False)))
@@ -162,8 +182,11 @@ def main(argv=None, device="cuda"):
         device=device,
     )
 
-    ckpt_lib.save_params(os.path.join(model_path, "finished"), params)
-    logger.finish()
+    if rank == 0:
+        ckpt_lib.save_params(os.path.join(model_path, "finished"), params)
+        logger.finish()
+    if own_group and mesh.process_group() is not None:
+        torch.distributed.destroy_process_group()
     return make_policy, params, metrics
 
 

@@ -12,14 +12,25 @@ gives the behaviour and uniform-action log-probs.  Diagnostics:
 ``diag/action_mean|std``, ``diag/log_prob``, ``diag/rand_log_prob``, the
 callback's own seconds ``diag/eval_callback_s``, and a PNG of the plots.
 The JAX package runs the episode as one jitted scan; here it is an eager
-loop on the env's device.  The overlay video waits for ``render/``.
+loop on the env's device.
+
+With ``render`` (every ``render_every``-th call) the agent-vs-reference
+ghost overlay video ``<model_path>/rollout_<steps>.mp4`` (a .gif where
+imageio has no mp4 backend) is rendered on the env's device by
+render.render_overlay_video, on one worker thread, so that it overlaps the
+next training interval; on a CUDA device the thread casts on a stream of
+its own, not behind the trainer's launches on the default stream.  A call
+whose predecessor's video is still being rendered skips its own
+(``diag/video_skipped``).  A render error becomes the job's result
+(``render-error: ...``) and training goes on, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -30,19 +41,25 @@ from vnl_tpu_torch.training import checkpoint as ckpt_lib
 
 class EvalCallback:
     def __init__(self, env, model_path: str, logger=None,
-                 episode_length: int = 150, render: bool = False,
-                 plots: bool = True):
-        if render:
-            raise NotImplementedError(
-                "the overlay video needs render/, which the port does not "
-                "have yet (ROADMAP.md §1, item 'Rendering'); pass "
-                "render=False (render_eval: false)")
+                 episode_length: int = 150, render_every: int = 1,
+                 render: bool = False, plots: bool = True):
         self._env = env
         self._model_path = model_path
         self._logger = logger
         self._episode_length = episode_length
+        self._render_every = render_every
+        self._render = render
         self._plots = plots
         self._calls = 0
+        self._render_pool = None
+        self._render_stream = None
+        self._pending_render = None
+        if render:
+            self._render_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1)
+            device = env.sys.device
+            if device.type == "cuda":
+                self._render_stream = torch.cuda.Stream(device)
 
     def rollout(self, policy, generator: Optional[torch.Generator] = None,
                 noise: Optional[Dict[str, Sequence[torch.Tensor]]] = None
@@ -51,13 +68,17 @@ class EvalCallback:
         ``noise`` may fix the draws: ``start_frame`` (1,) and ``reset``
         (1, nq) for the reset, and per step ``latent`` (1, latent),
         ``action`` (1, nu) and ``uniform`` (1, nu); the rest come from
-        ``generator``.  Returns (T, ...) numpy series."""
+        ``generator``.  Returns (T, ...) numpy series, and the episode's
+        ``start_frame`` and ``clip_id`` (-1 for a single-clip env) as
+        ints."""
         noise = noise or {}
         make = make_inference_fn(policy)
         det_policy, stoch_policy = make(deterministic=True), make()
         state = self._env.reset(1, generator=generator,
                                 start_frame=noise.get("start_frame"),
                                 noise=noise.get("reset"))
+        start_frame = int(state.info.get("cur_frame", torch.zeros(1))[0])
+        clip_id = int(state.info.get("clip_id", torch.full((1,), -1))[0])
         out = {k: [] for k in ("qpos", "rtrunk", "reward", "action",
                                "log_prob", "rand_log_prob")}
         for t in range(self._episode_length):
@@ -79,7 +100,8 @@ class EvalCallback:
             out["action"].append(act[0])
             out["log_prob"].append(extras["log_prob"][0])
             out["rand_log_prob"].append(extras["rand_log_prob"][0])
-        return {k: torch.stack(v).cpu().numpy() for k, v in out.items()}
+        return dict({k: torch.stack(v).cpu().numpy() for k, v in out.items()},
+                    start_frame=start_frame, clip_id=clip_id)
 
     @staticmethod
     def diagnostics(traj: Dict[str, np.ndarray]) -> Dict[str, float]:
@@ -115,6 +137,26 @@ class EvalCallback:
         series["diag/eval_callback_s"] = time.perf_counter() - t0
         if self._logger is not None:
             self._logger.log(series, step=num_steps)
+
+        if self._render and self._calls % self._render_every == 0:
+            # skip if the previous eval's render is still running (pile-up
+            # guard: rendering must never fall behind training)
+            if self._pending_render is None or self._pending_render.done():
+                qpos, sf, cid = traj["qpos"], traj["start_frame"], \
+                    traj["clip_id"]
+
+                def _job():
+                    try:
+                        return self._render_overlay(qpos, sf, num_steps, cid)
+                    except Exception as e:  # never kill training
+                        return f"render-error: {e}"
+
+                self._pending_render = self.in_render_thread(_job)
+                series["diag/video"] = os.path.join(
+                    self._model_path, f"rollout_{num_steps}.mp4")
+                series["diag/video_async"] = True
+            else:
+                series["diag/video_skipped"] = "previous render in flight"
         self._calls += 1
         return series
 
@@ -161,3 +203,62 @@ class EvalCallback:
         fig.savefig(out, dpi=100)
         plt.close(fig)
         return out
+
+    def render_result(self, timeout: Optional[float] = None
+                      ) -> Union[str, None]:
+        """Waits for the last render job and returns its result: the path
+        written, None (no reference clip), or a ``render-error: ...``
+        string; None when no render was started."""
+        if self._pending_render is None:
+            return None
+        return self._pending_render.result(timeout=timeout)
+
+    def _resolve_ref_clip(self, clip_id: int = -1):
+        """The reference clip an episode tracked: the single-clip envs keep
+        it as ``_ref_traj`` (humanoid, ant) or ``_ref_clip`` (rodent); the
+        multi-clip env's clip is the one of ``clip_id`` in its library."""
+        env = self._env
+        for name in ("_ref_traj", "_ref_clip"):
+            ref = getattr(env, name, None)
+            if ref is not None:
+                return ref
+        library = getattr(env, "clip_library", None)
+        if library is not None:
+            return library.get(max(clip_id, 0))
+        return None
+
+    def overlay_inputs(self, qpos_rollout: np.ndarray, start_frame: int,
+                       clip_id: int = -1):
+        """(agent qpos, reference qpos) of an episode's overlay, (T, nq)
+        numpy each, or None without a reference clip."""
+        ref = self._resolve_ref_clip(clip_id)
+        if ref is None:
+            return None
+        T = qpos_rollout.shape[0]
+        sl = slice(start_frame, start_frame + T)
+        qreferences = torch.cat([ref.position[sl], ref.quaternion[sl],
+                                 ref.joints[sl]], 1).cpu().numpy()
+        n = min(len(qreferences), T)
+        return qpos_rollout[:n], qreferences[:n]
+
+    def in_render_thread(self, fn):
+        """Runs ``fn()`` on the render worker thread, on its CUDA stream
+        where the env has one (waiting for the stream before it returns);
+        returns the future."""
+        def job():
+            if self._render_stream is None:
+                return fn()
+            with torch.cuda.stream(self._render_stream):
+                out = fn()
+            self._render_stream.synchronize()
+            return out
+        return self._render_pool.submit(job)
+
+    def _render_overlay(self, qpos_rollout: np.ndarray, start_frame: int,
+                        num_steps: int, clip_id: int = -1) -> Optional[str]:
+        from vnl_tpu_torch.render import render_overlay_video
+        pair = self.overlay_inputs(qpos_rollout, start_frame, clip_id)
+        if pair is None:
+            return None
+        out = os.path.join(self._model_path, f"rollout_{num_steps}.mp4")
+        return render_overlay_video(self._env.sys, *pair, out)

@@ -1,6 +1,6 @@
 """Gradient update (PyTorch counterpart of vnl_tpu/training/gradients.py):
-loss, backward and one optimizer step.  The cross-device gradient mean of
-the JAX package is not ported yet."""
+loss, backward, the gradient mean over the ranks of a process group (the
+JAX package's pmean over the mesh axis), and one optimizer step."""
 
 from __future__ import annotations
 
@@ -45,16 +45,32 @@ def load_adam_state(optimizer: torch.optim.Adam,
             "exp_avg_sq": state["exp_avg_sq"][name].to(p).clone()}
 
 
+def all_reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
+    """Replaces each parameter's gradient by its mean over the ranks of the
+    process group, by one all-reduce of all of them (in place)."""
+    from vnl_tpu_torch.parallel import mesh
+    grads = [p.grad for p in params if p.grad is not None]
+    # one launch each: the concatenation, the all-reduce, the division and
+    # the copy back (an SGD update is host-bound; PERF.md §5)
+    torch._foreach_copy_(grads, mesh.all_reduce_mean(
+        grads, name="grad_all_reduce"))
+
+
 def gradient_update_fn(loss_fn: Callable, optimizer: torch.optim.Optimizer,
-                       has_aux: bool = False):
-    """Returns f(*args, **kwargs): evaluates ``loss_fn``, backpropagates
-    and applies one ``optimizer`` step to the parameters it holds (in
-    place).  Returns what ``loss_fn`` returned: the loss, or (loss, aux)."""
+                       has_aux: bool = False, data_parallel: bool = False):
+    """Returns f(*args, **kwargs): evaluates ``loss_fn``, backpropagates,
+    with ``data_parallel`` averages the gradients over the ranks of the
+    process group, and applies one ``optimizer`` step to the parameters it
+    holds (in place).  Returns what ``loss_fn`` returned: the loss, or
+    (loss, aux)."""
 
     def f(*args, **kwargs):
         optimizer.zero_grad(set_to_none=True)
         out = loss_fn(*args, **kwargs)
         (out[0] if has_aux else out).backward()
+        if data_parallel:
+            all_reduce_gradients(p for group in optimizer.param_groups
+                                 for p in group["params"])
         optimizer.step()
         return out
 

@@ -1,7 +1,9 @@
 """Running observation statistics (PyTorch counterpart of
 vnl_tpu/training/running_statistics.py): a Welford-style streaming mean and
-std.  The update reduces over all leading batch dims; the cross-device sum
-of the JAX package is not ported yet."""
+std.  The update reduces over all leading batch dims; with
+``data_parallel`` it also sums the count, the batch sum and the variance
+update over the ranks of the process group (the JAX package's psum), so
+that every rank keeps the same statistics."""
 
 from __future__ import annotations
 
@@ -29,16 +31,27 @@ def init_state(shape, dtype=torch.float32,
         std=torch.ones(shape, dtype=dtype, device=device))
 
 
-def update(state: RunningStatisticsState,
-           batch: torch.Tensor) -> RunningStatisticsState:
+def update(state: RunningStatisticsState, batch: torch.Tensor,
+           data_parallel: bool = False) -> RunningStatisticsState:
     """Folds a batch of observations into the statistics (Chan's parallel
-    update: the variance term pairs the old and the new mean)."""
+    update: the variance term pairs the old and the new mean).  With
+    ``data_parallel`` the batch is this rank's share of the global batch."""
+    from vnl_tpu_torch.parallel import mesh
     batch_dims = tuple(range(batch.dim() - state.mean.dim()))
     batch_count = float(math.prod(batch.shape[:len(batch_dims)]))
+    batch_sum = batch.sum(batch_dims)
+    if data_parallel:
+        n, batch_sum = mesh.all_reduce_sum(
+            [batch_sum.new_tensor([batch_count]), batch_sum],
+            name="normalizer_all_reduce")
+        batch_count = n[0]
     count = state.count + batch_count
-    mean = (state.mean + batch.sum(batch_dims) / count
+    mean = (state.mean + batch_sum / count
             - state.mean * batch_count / count)
     var_update = ((batch - state.mean) * (batch - mean)).sum(batch_dims)
+    if data_parallel:
+        (var_update,) = mesh.all_reduce_sum([var_update],
+                                            name="normalizer_all_reduce")
     summed_variance = state.summed_variance + var_update
     std = torch.sqrt(torch.clamp(summed_variance / count, min=0.0) + 1e-6)
     return RunningStatisticsState(count=count, mean=mean,

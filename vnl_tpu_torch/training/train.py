@@ -1,4 +1,5 @@
-"""Intention-PPO trainer on one device (PyTorch counterpart of
+"""Intention-PPO trainer, on one device or data-parallel over the ranks of a
+torch.distributed process group, one GPU each (PyTorch counterpart of
 vnl_tpu/training/train.py).
 
 One training step: ``rollouts_per_step`` unrolls of ``unroll_length``
@@ -18,8 +19,15 @@ restored run starts at the restored env steps and Adam step count.  With
 ``adaptive_clip_weights`` and a multi-clip env, each evaluation sets new
 clip weights from the per-clip eval rewards and re-resets every env.
 
-Not here yet: the device mesh and the gradient all-reduce
-(``num_devices``).
+Data parallelism (``num_devices``, the size of an initialised process
+group; parallel.initialize): each rank steps ``num_envs // world`` envs
+with its own generators (the seed offset by the rank) and a replica of the
+networks, initialised from the global seed; the gradients are averaged
+and the normaliser's sums added over the ranks by all-reduces, so the
+replicas stay equal bit for bit (checked at the end,
+``parallel.assert_is_replicated``).  The interval's metrics are averaged
+over the ranks; evaluation, progress, the params callback and checkpoints
+run on rank 0 only.  Without a process group nothing is all-reduced.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from vnl_tpu_torch import models as models_lib
 from vnl_tpu_torch.envs.wrappers import wrap_for_training
+from vnl_tpu_torch.parallel import mesh as mesh_lib
 from vnl_tpu_torch.training import (acting, checkpoint, gradients,
                                     running_statistics)
 from vnl_tpu_torch.training import losses as ppo_losses
@@ -53,6 +62,10 @@ class TrainingState:
     params: Dict[str, Dict[str, torch.Tensor]]     # "policy", "value"
     normalizer_params: running_statistics.RunningStatisticsState
     env_steps: int
+
+
+# the generators of rank r draw from seed + _RANK_STRIDE * r + (1, 2)
+_RANK_STRIDE = 1_000_003
 
 
 def _sync(device) -> None:
@@ -148,6 +161,7 @@ def train(
     eval_env=None,
     policy_params_fn: Callable = lambda *args: None,
     kl_weight: float = 1e-4,
+    num_devices: Optional[int] = None,
     restore_checkpoint_path: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     adaptive_clip_weights: bool = False,
@@ -155,11 +169,23 @@ def train(
 ):
     """Runs PPO; returns (make_policy, (normalizer_params, policy
     state_dict), metrics).  ``make_policy(deterministic)`` acts with the
-    trained networks.  ``environment`` lives on ``device``."""
+    trained networks.  ``environment`` lives on ``device``, this rank's
+    GPU.  ``num_envs`` counts the envs of all ranks; ``num_devices``, when
+    given, must be the process group's size (1 without a group)."""
     if batch_size * num_minibatches % num_envs != 0:
         raise ValueError(
             "num_envs must divide batch_size * num_minibatches")
     start_walltime = time.time()
+
+    world, rank = mesh_lib.world_size(), mesh_lib.rank()
+    data_parallel = mesh_lib.process_group() is not None
+    if num_devices is not None and num_devices != world:
+        raise ValueError(f"num_devices={num_devices}, but there are {world} "
+                         "processes (one a device; parallel.initialize)")
+    logging.info("processes: %d (rank %d)", world, rank)
+    if num_envs % world != 0:
+        raise ValueError(f"num_envs={num_envs} not divisible by {world}")
+    num_envs_local = num_envs // world
 
     steps_per_training_step = (
         batch_size * unroll_length * num_minibatches * action_repeat)
@@ -168,16 +194,18 @@ def train(
         num_timesteps / (intervals * steps_per_training_step)))
     rollouts_per_step = batch_size * num_minibatches // num_envs
 
-    # the networks' initial values come from a CPU generator, so they do
-    # not depend on the device; rollouts, shuffles and the loss's noise
-    # draw from one device generator, the evaluator from another
+    # the networks' initial values come from a CPU generator seeded alike
+    # on every rank, so they do not depend on the device or the rank;
+    # rollouts, shuffles and the loss's noise draw from one device
+    # generator, the evaluator from another, each offset by the rank
     init_gen = torch.Generator().manual_seed(seed)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    eval_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    rank_seed = seed + _RANK_STRIDE * rank
+    gen = torch.Generator(device=device).manual_seed(rank_seed + 1)
+    eval_gen = torch.Generator(device=device).manual_seed(rank_seed + 2)
 
     env = wrap_for_training(environment, episode_length=episode_length,
                             action_repeat=action_repeat)
-    env_state = env.reset(num_envs, generator=gen)
+    env_state = env.reset(num_envs_local, generator=gen)
 
     ppo_network = network_factory(
         env_state.info["traj"].shape[-1], env_state.obs.shape[-1],
@@ -192,8 +220,8 @@ def train(
         reward_scaling=reward_scaling, gae_lambda=gae_lambda,
         clipping_epsilon=clipping_epsilon,
         normalize_advantage=normalize_advantage, kl_weight=kl_weight)
-    update_step = gradients.gradient_update_fn(loss_fn, optimizer,
-                                               has_aux=True)
+    update_step = gradients.gradient_update_fn(
+        loss_fn, optimizer, has_aux=True, data_parallel=data_parallel)
 
     named_parameters = dict(ppo_network.named_parameters())
 
@@ -224,7 +252,8 @@ def train(
         _sync(device)
         t1 = time.perf_counter()
         normalizer_params = running_statistics.update(
-            ts.normalizer_params, batch.observation)
+            ts.normalizer_params, batch.observation,
+            data_parallel=data_parallel)
         if normalize_observations:
             ppo_network.set_normalizer(normalizer_params)
         stats = []
@@ -254,7 +283,11 @@ def train(
             ts, env_state, r, t = one_training_step(ts, env_state)
             rows.append(r)
             times.append(t)
-        stats_host = torch.cat(rows).mean(0).cpu().numpy()
+        stats = torch.cat(rows).mean(0)
+        if data_parallel:
+            (stats,) = mesh_lib.all_reduce_mean([stats],
+                                                name="metrics_all_reduce")
+        stats_host = stats.cpu().numpy()
         elapsed = time.time() - t0
         training_walltime += elapsed
         rollout_s, sgd_s = np.mean(times, axis=0)
@@ -271,6 +304,10 @@ def train(
 
     clip_lib = getattr(environment, "clip_library", None)
     adaptive_clip_weights = adaptive_clip_weights and clip_lib is not None
+    if adaptive_clip_weights and world > 1:
+        raise NotImplementedError(
+            "adaptive_clip_weights needs a cross-process weight broadcast; "
+            "run one process or disable it")
 
     evaluator = acting.Evaluator(
         wrap_for_training(eval_env or environment,
@@ -284,7 +321,7 @@ def train(
         return ts.normalizer_params, ts.params["policy"]
 
     metrics = {}
-    if num_evals > 1:
+    if rank == 0 and num_evals > 1:
         metrics = evaluator.run_evaluation(training_metrics={})
         logging.info(metrics)
         progress_fn(0, metrics)
@@ -299,10 +336,12 @@ def train(
         training_state = snapshot(training_state.normalizer_params,
                                   training_state.env_steps)
         current_step = training_state.env_steps
+        if rank != 0:
+            continue
         metrics = evaluator.run_evaluation(training_metrics)
         if adaptive_clip_weights:
             w = clip_weights_from_metrics(metrics, clip_lib.num_clips)
-            env_state = env.reset(num_envs, generator=gen,
+            env_state = env.reset(num_envs_local, generator=gen,
                                   clip_weights=torch.as_tensor(
                                       w, dtype=torch.float32, device=device))
             metrics.update({f"training/clip_weight_{c}": float(w[c])
@@ -316,5 +355,7 @@ def train(
                                   training_state)
 
     checkpoint.wait_for_pending_saves()
+    mesh_lib.assert_is_replicated(training_state)
     logging.info("total steps: %s", current_step)
+    mesh_lib.synchronize_hosts()
     return make_policy, params_of(training_state), metrics
