@@ -49,14 +49,17 @@ Phases, in order; any failure exits non-zero:
   8. the humanoid family: the port's compiler builds the committed
      dm_control humanoid (vnl_tpu_torch/assets/dm_humanoid) on the card,
      every field equal to the host's compile; kernel A against its plain
-     version on 1024 humanoid states (nv 27, tile (10, 3)); kernel B on
-     1024 humanoid contact states (729 constraint rows: the shared-memory
-     line search, cg_kernel<0>, which must be the one picked; condim 1
-     and 3, contacts between two moving bodies) through
+     version on 1024 humanoid states (nv 27: the one-warp route,
+     position_warp_kernel<32,2>, which must be the one picked); kernel B
+     on 1024 humanoid contact states (729 constraint rows: the wide route,
+     cg_wide_kernel<3,1>, which must be the one picked; condim 1 and 3,
+     contacts between two moving bodies) through
      kernel_bench.check_cg_reruns: check_cg's per-env test at 1e-3, with a
      budget of twice the envs the plain solve itself misses when re-run
      in float32 at one rounding, plus 0.5% (check_cg's own rule is met by
-     no float32 evaluation on these states); HumanoidTracking and
+     no float32 evaluation on these states); each also bit for bit
+     across two launches; one line with the stage split of A and B at
+     these shapes (and, with --old, both trees' times); HumanoidTracking and
      HumanoidStanding, wrapped for training, reset for 1024 envs and
      driven 20 control steps by a freshly initialised intention policy at
      the config's widths (value (1024, 1024)), A and B at least 100
@@ -66,7 +69,10 @@ Phases, in order; any failure exits non-zero:
      (128 envs) for one interval of one training step (episode 30), which
      must write its checkpoint and finished params;
   9. the ant: the committed gymnasium ant compiled on the card as in 8;
-     kernel A on 1024 ant states (nv 14); kernel C against its plain
+     kernel A on 1024 ant states (nv 14, the one-warp route
+     position_warp_kernel<16,2>), bit for bit across two launches, and a
+     line with its stage split (with --old, both trees' times); kernel C
+     against its plain
      version on the 1024 Hessians of the first Newton iteration at ant
      contact states (n 14, rtol 5e-3, bitwise symmetric, two launches
      the same bits), with torch.linalg.inv's time; AntTracking (Newton,
@@ -103,7 +109,7 @@ time, bound, error, registers, shared memory and resident blocks per SM,
 every number measured in this run, and last
 {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--out details.json]
+Usage: python3 chip_smoke.py [--out details.json] [--old DIR]
 (needs one CUDA device; builds into build/kernels).  Imports nothing of
 JAX or vnl_tpu.
 """
@@ -162,6 +168,13 @@ def spill_bytes(name: str, kernel: str = "") -> int:
                 if kernel in fn] or [0])
 
 
+def mangled(route: str) -> str:
+    """The part of a kernel's mangled name that names its instantiation:
+    "cg_wide_kernel<3,1>" -> "cg_wide_kernelILi3ELi1EE"."""
+    name, args = route.rstrip(">").split("<")
+    return name + "I" + "".join(f"Li{a}E" for a in args.split(",")) + "E"
+
+
 def check_position(m, qpos, ker, plain):
     """Kernel A's outputs against the plain version's; returns the errors."""
     from vnl_tpu_torch.ops import position as pos
@@ -216,7 +229,8 @@ def phase_kernel_a(m, gen, name="position", other_batches=OTHER_BATCHES):
     res = pos.resources(m)
     return dict(name=name, kernel="position", route="cuda",
                 shape=dict(batch=BATCH, nq=m.nq, nv=m.nv, nbody=m.nbody,
-                           tile=list(pos.tile_shape(m.nv))),
+                           tile=list(pos.tile_shape(m.nv)),
+                           instantiation=pos.route_name(m)),
                 source="vnl_tpu_torch/csrc/position.cu",
                 replaces="vnl_tpu/ops/pallas_position.py:229",
                 max_abs_err=max(v for k, v in errs.items()
@@ -225,7 +239,8 @@ def phase_kernel_a(m, gen, name="position", other_batches=OTHER_BATCHES):
                 library_ms=None, regs=res["regs"], smem_bytes=res["smem_bytes"],
                 blocks_per_sm=res["blocks_per_sm"],
                 local_bytes=res["local_bytes"],
-                spill_bytes=spill_bytes("position")), errs
+                spill_bytes=spill_bytes("position",
+                                        mangled(pos.route_name(m)))), errs
 
 
 def cg_cost(st, args):
@@ -287,7 +302,7 @@ def phase_kernel_b(m, gen, name="cg", other_batches=OTHER_BATCHES,
                 regs=res["regs"], smem_bytes=res["smem_bytes"],
                 blocks_per_sm=res["blocks_per_sm"],
                 local_bytes=res["local_bytes"],
-                spill_bytes=spill_bytes("cg"),
+                spill_bytes=spill_bytes("cg", mangled(cg_ops.kernel_name(st))),
                 # envs of the three batches held to the float64 plain solve,
                 # and envs on which the plain solve differs from itself
                 checked_envs=BATCH + sum(other_batches), off_envs=off,
@@ -770,9 +785,23 @@ def add_counts(*counts):
     return out
 
 
-def phase_humanoid(device):
+def print_split(scene, m, trees):
+    """One line: kernel_bench.stage_split of the kernels ``scene`` runs,
+    at its shapes, and the times of both trees if compare_kernels took
+    them (``trees``)."""
+    from vnl_tpu_torch.kernel_bench import SCENE_PRESS, stage_split
+    kernels = ("position", "cg") if scene == "humanoid" else ("position",)
+    split = stage_split(m, BATCH, press=SCENE_PRESS[scene], kernels=kernels)
+    if trees:
+        split["trees"] = {k: v for k, v in trees.items()
+                          if k.endswith(f"_{scene}_ms")}
+    print(json.dumps({f"stage_split_{scene}": split}), flush=True)
+
+
+def phase_humanoid(device, trees=None):
     """Phase 8; returns (kernel rows, launch counts of its paths, report,
-    errors)."""
+    errors).  ``trees``: compare_kernels' times of this and an earlier
+    tree, if taken."""
     import glob
     from vnl_tpu_torch import compat
     from vnl_tpu_torch.envs import HumanoidStanding, HumanoidTracking
@@ -785,8 +814,11 @@ def phase_humanoid(device):
     row_a, errs_a = phase_kernel_a(m, gen, "position_humanoid", ())
     row_b, errs_b = phase_kernel_b(m, gen, "cg_humanoid", (),
                                    press=HUMANOID_PRESS, reruns=True)
-    if row_b["shape"]["instantiation"] != "cg_kernel<0>":
-        raise AssertionError(f"kernel B on the humanoid: {row_b['shape']}")
+    if row_a["shape"]["instantiation"] != "position_warp_kernel<32,2>" or \
+            row_b["shape"]["instantiation"] != "cg_wide_kernel<3,1>":
+        raise AssertionError(f"kernels A, B on the humanoid: "
+                             f"{row_a['shape']}, {row_b['shape']}")
+    print_split("humanoid", m, trees)
     print(json.dumps({"kernel_b_humanoid": dict(
         row_b["shape"], active_contacts=errs_b["active_contacts"],
         **{k: errs_b[k] for k in ("far_envs", "off_envs", "budget_far",
@@ -816,9 +848,9 @@ def phase_humanoid(device):
             {"position_humanoid": errs_a, "cg_humanoid": errs_b})
 
 
-def phase_ant(device):
+def phase_ant(device, trees=None):
     """Phase 9; returns (kernel rows, launch counts of its paths, report,
-    errors)."""
+    errors).  ``trees`` as for phase_humanoid."""
     from vnl_tpu_torch import bench, compat, models
     from vnl_tpu_torch.envs import AntTracking
     from vnl_tpu_torch.kernel_bench import QUEUED, newton_hessians, time_ms
@@ -831,6 +863,9 @@ def phase_ant(device):
         {"solver": "newton", "iterations": 1, "ls_iterations": 4}, device)
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     row_a, errs_a = phase_kernel_a(m, gen, "position_ant", ())
+    if row_a["shape"]["instantiation"] != "position_warp_kernel<16,2>":
+        raise AssertionError(f"kernel A on the ant: {row_a['shape']}")
+    print_split("ant", m, trees)
     # kernel C on the Hessians of the first Newton iteration
     H, active = newton_hessians(m, BATCH, gen, press=0.3)
     errs_c = {"active_contacts": active}
@@ -1136,6 +1171,19 @@ def phase_data_parallel(device):
     return add_counts(c_plain, c_dp), rep
 
 
+def compare_trees(old: str) -> dict:
+    """tools/compare_kernels.py --old ``old``: {key: {"old": ms, "new":
+    ms}} of both trees' kernels, timed in turns."""
+    import subprocess
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                       "compare_kernels.py"),
+                          "--old", old], capture_output=True, text=True)
+    if out.returncode != 0:
+        raise AssertionError(f"compare_kernels: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return {k: v for k, v in res.items() if k.endswith("_ms")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script drives "
@@ -1148,6 +1196,11 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", default="",
                    help="also write the details as JSON to this file")
+    p.add_argument("--old", default="",
+                   help="an earlier tree of the port (a directory): time "
+                        "its kernels and this tree's in turns "
+                        "(tools/compare_kernels.py) and print both in "
+                        "phases 8-9")
     args = p.parse_args()
     device = "cuda"
     forward.pin_fp32()
@@ -1171,8 +1224,9 @@ def main() -> int:
     counts_fused, info["training_fused"] = phase_training(True, steps=2)
     counts_unfused, info["training_unfused"] = phase_training(False, steps=1)
     info["cli"], counts_cli = phase_cli(device)
-    rows_h, counts_h, info["humanoid"], errs_h = phase_humanoid(device)
-    rows_ant, counts_ant, info["ant"], errs_ant = phase_ant(device)
+    trees = compare_trees(args.old) if args.old else None
+    rows_h, counts_h, info["humanoid"], errs_h = phase_humanoid(device, trees)
+    rows_ant, counts_ant, info["ant"], errs_ant = phase_ant(device, trees)
     info["render"] = phase_render(device)
     counts_dp, info["data_parallel"] = phase_data_parallel(device)
     twin_counts = add_counts(counts, counts_fused, counts_unfused,

@@ -5,6 +5,8 @@ contact-only box with nlimit == 0 (:127-162); plus the port's collision and
 constraint assembly against the JAX package's flat solver inputs.
 Tolerance 1e-3 (tests/test_pallas_cg.py:120-124)."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -342,3 +344,195 @@ def test_check_cg_reruns_humanoid(humanoid_cg, case):
             st.nv, st.lim_dof, st.chain1, st.chain2, 5, st.ls_iters))
     with pytest.raises(AssertionError, match="at most"):
         kernel_bench.check_cg_reruns(st, args, bad)
+
+
+# ---- the per-body tables of kernel B's wide route (ops/cg.py body_tables) --
+
+def _box_chain_system():
+    from vnl_tpu_torch import compat, kernel_bench
+    m = compat.model_from_numpy(compat.BOX_CHAIN_MODEL, device="cpu")
+    (args, st), _ = kernel_bench.contact_states(
+        m, 1, torch.Generator().manual_seed(0), press=0.0)
+    return st, list(args)
+
+
+def _system(scene, twin, humanoid_cg):
+    if scene == "twin":
+        return _twin_system(twin)
+    if scene == "contact_box":
+        return _contact_box()
+    if scene == "box_chain":
+        return _box_chain_system()
+    args, st = humanoid_cg
+    return st, [a[:1] for a in args]
+
+
+def _walk(vals, dtype):
+    """Sum of ``vals`` one after another in ``dtype`` (a thread's walk)."""
+    acc = dtype(0)
+    for v in vals:
+        acc = dtype(acc + dtype(v))
+    return acc
+
+
+SCENES = ["twin", "contact_box", "box_chain", "humanoid"]
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_body_tables_group_sides_by_chain(twin, humanoid_cg, scene):
+    """Every group is one chain and holds exactly the sides of that chain;
+    the chunks cut each group's ascending side list; each dof's chunks are
+    those whose chain holds the dof; no more chunks than THREADS / 6 where
+    chunks of one side would allow it."""
+    st, _ = _system(scene, twin, humanoid_cg)
+    t = tcg.kernel_tables(st)
+    nc = st.ncon
+    sides = np.concatenate([st.chain2, st.chain1]) != 0
+    ngrp = len(t["grp_start"]) - 1
+    chains = [t["grp_dof"][t["grp_start"][g]:t["grp_start"][g + 1]]
+              for g in range(ngrp)]
+    assert len({c.tobytes() for c in chains}) == ngrp
+    for sc in range(2 * nc):
+        g = t["grp_of_side"][sc]
+        if not sides[sc].any():
+            assert g == ngrp
+        else:
+            np.testing.assert_array_equal(chains[g], np.flatnonzero(sides[sc]))
+    nchunk = len(t["chunk_start"]) - 1
+    chunk_grp = []
+    for ch in range(nchunk):
+        own = t["chunk_side"][t["chunk_start"][ch]:t["chunk_start"][ch + 1]]
+        assert 0 < len(own) <= t["chunk_len"] and np.all(np.diff(own) > 0)
+        assert len(set(t["grp_of_side"][own].tolist())) == 1
+        chunk_grp.append(t["grp_of_side"][own[0]])
+    np.testing.assert_array_equal(
+        np.sort(t["chunk_side"]), np.flatnonzero(sides.any(1)))
+    if nchunk * 6 > tcg.THREADS:
+        assert t["chunk_len"] == max(np.bincount(t["grp_of_side"])[:ngrp])
+    for d in range(st.nv):
+        own = t["dof_chunk"][t["dof_cstart"][d]:t["dof_cstart"][d + 1]]
+        want = [ch for ch in range(nchunk) if d in chains[chunk_grp[ch]]]
+        np.testing.assert_array_equal(own, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("scene", SCENES)
+def test_body_tables_reproduce_jtf(twin, humanoid_cg, scene, dtype):
+    """J^T f as kernel B's wide route adds it (per chunk and component the
+    chunk's sides' G f, per dof the chunks below its body, times cdof,
+    plus the limit row) against the port's J^T f over the chain masks, in
+    float64 and float32."""
+    st, a = _system(scene, twin, humanoid_cg)
+    t = tcg.kernel_tables(st)
+    nc, nv = st.ncon, st.nv
+    cdof, g36, lsign, mu = (np.asarray(a[i][0], np.float64).astype(dtype)
+                            for i in (3, 4, 5, 8))
+    g = g36.reshape(2, 3, 6, nc)                     # [sd, f, k, c]
+    rng = np.random.default_rng(11)
+    lf = rng.normal(size=st.nlimit).astype(dtype)
+    cf = rng.normal(size=(nc, 4)).astype(dtype)
+    fv = np.stack([((cf[:, 0] + cf[:, 1]) + cf[:, 2]) + cf[:, 3],
+                   mu[:, 0] * (cf[:, 0] - cf[:, 1]),
+                   mu[:, 1] * (cf[:, 2] - cf[:, 3])], -1)
+    nchunk = len(t["chunk_start"]) - 1
+    part = np.zeros((nchunk, 6), dtype)
+    for ch in range(nchunk):
+        for k in range(6):
+            terms = []
+            for sc in t["chunk_side"][t["chunk_start"][ch]:
+                                      t["chunk_start"][ch + 1]]:
+                sd, c = divmod(int(sc), nc)
+                gf = _walk(g[sd, :, k, c] * fv[c], dtype)
+                terms.append(-gf if sd else gf)
+            part[ch, k] = _walk(terms, dtype)
+    jtf = np.zeros(nv, dtype)
+    for d in range(nv):
+        own = t["dof_chunk"][t["dof_cstart"][d]:t["dof_cstart"][d + 1]]
+        u = np.array([_walk(part[own, k], dtype) for k in range(6)])
+        jtf[d] = _walk(cdof[d] * u, dtype)
+        if t["lim_of_dof"][d] >= 0:
+            row = t["lim_of_dof"][d]
+            jtf[d] = dtype(jtf[d] + lsign[row] * lf[row])
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    tefc = tcg._efc(st, *[x.to(tdt) for x in a[3:]])
+    want = tefc.jt_f(torch.as_tensor(lf)[None], torch.as_tensor(cf)[None])[0]
+    scale = float(want.abs().max()) + 1.0
+    tol = 1e-11 if dtype == np.float64 else 2e-6
+    tp.assert_close(torch.as_tensor(jtf), want, tol, tol * scale, "jt_f")
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_body_path_sums_keep_jv_bits(twin, humanoid_cg, scene):
+    """J v's first half once a body (one walk a group and component, read
+    by every side of the group) equals the per-side walks bit for bit in
+    float32: a group's dofs are its sides' dofs in the same order."""
+    st, a = _system(scene, twin, humanoid_cg)
+    t = tcg.kernel_tables(st)
+    nc = st.ncon
+    cdof = np.asarray(a[3][0], np.float32)
+    v = np.random.default_rng(12).normal(size=st.nv).astype(np.float32)
+    ngrp = len(t["grp_start"]) - 1
+    grp = np.zeros((ngrp + 1, 6), np.float32)
+    for gi in range(ngrp):
+        dofs = t["grp_dof"][t["grp_start"][gi]:t["grp_start"][gi + 1]]
+        grp[gi] = [_walk(cdof[dofs, k] * v[dofs], np.float32)
+                   for k in range(6)]
+    for sc in range(2 * nc):
+        dofs = t["side_dof"][t["side_start"][sc]:t["side_start"][sc + 1]]
+        side = np.array([_walk(cdof[dofs, k] * v[dofs], np.float32)
+                         for k in range(6)], np.float32)
+        np.testing.assert_array_equal(grp[t["grp_of_side"][sc]], side)
+
+
+def test_kernel_name_routes(twin, humanoid_cg):
+    """The route of each system: the twin's 159 rows on one warp, the
+    humanoid's 729 on the wide route with 3 contact rows a thread, and
+    beyond 1,024 contact rows or 256 limit rows the shared-memory line
+    search; the source instantiates the wide route's slot counts."""
+    import os
+    import re
+    st_twin, _ = _twin_system(twin)
+    assert tcg.kernel_name(st_twin) == "cg_kernel<5>"
+    st_h = humanoid_cg[1]
+    assert tcg.kernel_name(st_h) == "cg_wide_kernel<3,1>"
+
+    def made(ncon, nlimit):
+        chain = np.zeros((ncon, 4), np.float32)
+        chain[:, 0] = 1
+        return tcg.CgStatics.make(4, np.arange(nlimit) % 4 if nlimit <= 4
+                                  else np.arange(nlimit), chain, chain, 1, 1)
+
+    assert tcg.kernel_name(made(39, 4)) == "cg_kernel<5>"         # 160 rows
+    assert tcg.kernel_name(made(40, 4)) == "cg_wide_kernel<1,1>"
+    assert tcg.kernel_name(made(256, 1)) == "cg_wide_kernel<4,1>"
+    assert tcg.kernel_name(made(257, 1)) == "cg_kernel<0>"
+    st = tcg.CgStatics.make(300, np.arange(257), np.zeros((40, 300)),
+                            np.zeros((40, 300)), 1, 1)
+    assert tcg.kernel_name(st) == "cg_kernel<0>"
+    src = open(os.path.join(os.path.dirname(tcg.__file__), os.pardir,
+                            "csrc", "cg.cu")).read()
+    made_slots = sorted(int(n) for n in
+                        re.findall(r"cg_wide_kernel<(\d+), 1>;", src))
+    assert tuple(made_slots) == tcg.WIDE_SLOTS
+
+
+def test_structs_mirror_the_source():
+    """The ctypes structs of ops/cg.py list the fields of CgModel and
+    CgWide in cg.cu, in order, with their C types."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tcg.__file__), os.pardir,
+                            "csrc", "cg.cu")).read()
+    for struct in (tcg.CgModel, tcg.CgWide):
+        body = re.search(r"struct %s \{(.*?)\};" % struct.__name__, src,
+                         re.S).group(1)
+        body = re.sub(r"//[^\n]*", "", body)
+        fields = []
+        for decl in body.split(";"):
+            m = re.match(r"\s*(int|const int\*)\s+(.*)", decl.strip())
+            if m:
+                ctype = ctypes.c_int if m.group(1) == "int" else \
+                    ctypes.c_void_p
+                fields += [(n.strip().lstrip("*"), ctype)
+                           for n in m.group(2).split(",")]
+        assert fields == list(struct._fields_), struct.__name__

@@ -185,27 +185,60 @@ def test_cg_kernel_small_scene(model):
     _check_cg(args, st)
 
 
-@pytest.mark.cuda
-def test_cg_kernel_wide_system(model):
-    """More than 160 constraint rows (the line search then reads its rows
-    from shared memory): the twin's system with three more contacts that
-    stay inactive, so the solve is that of the test above."""
-    (args, st), _ = _cg_args(model, *_states(model, press=0.005))
+def _padded(model, pad, batch=B):
+    """The twin's contact system with ``pad`` more contacts (copies of its
+    first ones) that stay inactive, so its solve is the twin's: (args,
+    statics, the twin's own solve)."""
+    (args, st), _ = _cg_args(model, *_states(model, press=0.005,
+                                             batch=batch))
     narrow = cg_ops.cg(*args, statics=st)
-    pad = 3
+    reps = -(-pad // st.ncon)
     wide = cg_ops.CgStatics.make(
-        st.nv, st.lim_dof, *[np.concatenate([c, c[:pad]])
+        st.nv, st.lim_dof, *[np.concatenate([c] + [c] * reps)[:st.ncon + pad]
                              for c in (st.chain1, st.chain2)],
         st.iters, st.ls_iters)
-    assert wide.nlimit + 4 * wide.ncon > 160 >= st.nlimit + 4 * st.ncon
     args = list(args)
-    args[4] = torch.cat([args[4], args[4][:, :, :pad]], 2).contiguous()
+    args[4] = torch.cat([args[4]] + [args[4]] * reps,
+                        2)[:, :, :st.ncon + pad].contiguous()
     for i in (8, 9, 10):
-        args[i] = torch.cat([args[i], args[i][:, :pad]], 1).contiguous()
+        args[i] = torch.cat([args[i]] + [args[i]] * reps,
+                            1)[:, :st.ncon + pad].contiguous()
     args[9][:, st.ncon:] = -1e3         # far from touching: no force
+    return args, wide, narrow
+
+
+@pytest.mark.cuda
+def test_cg_kernel_wide_system(model):
+    """More than 160 constraint rows (the wide route, one contact row a
+    thread): the twin's system with three more contacts that stay
+    inactive, so the solve is that of the test above."""
+    args, wide, narrow = _padded(model, 3)
+    assert cg_ops.kernel_name(wide) == "cg_wide_kernel<1,1>"
     _check_cg(args, wide)
     got = cg_ops.cg(*args, statics=wide)
-    assert bool((got[2][:, st.ncon:] == 0).all())
+    assert bool((got[2][:, wide.ncon - 3:] == 0).all())
+    _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
+
+
+@pytest.mark.cuda
+def test_cg_kernel_wide_route_reruns(model):
+    """The wide route just above 160 rows (171) on 1000 envs, held by
+    kernel_bench.check_cg_reruns as the humanoid's 729 rows are."""
+    args, wide, _ = _padded(model, 3, batch=1000)
+    got = cg_ops.cg(*args, statics=wide)
+    kernel_bench.check_cg_reruns(wide, args, got)
+    for g, a in zip(got, cg_ops.cg(*args, statics=wide)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_cg_kernel_widest_system(model):
+    """More than 1,024 contact rows (the line search from shared memory,
+    cg_kernel<0>): the twin's system with 240 inactive contacts more."""
+    args, wide, narrow = _padded(model, 240)
+    assert cg_ops.kernel_name(wide) == "cg_kernel<0>"
+    _check_cg(args, wide)
+    got = cg_ops.cg(*args, statics=wide)
     _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
 
 
@@ -304,16 +337,49 @@ def ant(model):
 
 @pytest.mark.cuda
 def test_position_kernel_humanoid_and_ant(humanoid, ant):
-    """Kernel A at nv 27 and nv 14 (tile (10, 3), mostly padding)."""
-    for m in (humanoid, ant):
-        assert pos_ops.tile_shape(m.nv) == (10, 3)
+    """Kernel A at nv 27 and nv 14, on the one-warp route (32 and 16 rows a
+    lane)."""
+    for m, tile in ((humanoid, (32, 1)), (ant, (16, 1))):
+        assert pos_ops.tile_shape(m.nv) == tile
         _check_position(m, _free_states(m, B, 0.5))
+
+
+def chain_xml(hinges: int) -> str:
+    """A free-floating chain of capsules with ``hinges`` damped hinges
+    (nv = 6 + hinges), for kernel A's widths.  Armature 1 keeps qM's
+    condition in the hundreds: with 0.05, a chain of 26 hinges (condition
+    about 5e3) is where the plain version's recursive Schur complements,
+    the yardstick, miss the inverses' tolerance against float64 by
+    themselves."""
+    body = ""
+    for i in reversed(range(hinges)):
+        axis = ("0 1 0", "1 0 0", "0 0 1")[i % 3]
+        body = (f'<body pos="0 0 -0.12"><joint type="hinge" axis="{axis}" '
+                f'damping="0.5" armature="1"/><geom type="capsule" '
+                f'size="0.04" fromto="0 0 0 0 0 -0.1" mass="0.5"/>{body}'
+                '</body>')
+    return ('<mujoco><option timestep="0.005"/><worldbody>'
+            '<geom type="plane" size="5 5 0.1"/>'
+            '<body pos="0 0 2"><freejoint/><geom type="sphere" size="0.1" '
+            f'mass="1"/>{body}</body></worldbody></mujoco>')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [8, 14, 27, 32])
+def test_position_kernel_warp_route(model, nv):
+    """Kernel A on the one-warp route at nv 8, 14, 27 and 32 (chains of
+    capsules), against the plain version, two launches the same bits."""
+    from vnl_tpu_torch import mjcf
+    m = mjcf.load_model(chain_xml(nv - 6), device="cuda")
+    assert m.nv == nv and inertia.needs_implicit_damping(m)
+    assert pos_ops.tile_warps(*pos_ops.tile_shape(nv)) == 1
+    _check_position(m, _free_states(m, B, 0.8))
 
 
 @pytest.mark.cuda
 def test_cg_kernel_humanoid(humanoid):
-    """Kernel B on humanoid contact states: 729 constraint rows (the
-    shared-memory line search, cg_kernel<0>), condim 1 and 3, contacts
+    """Kernel B on humanoid contact states: 729 constraint rows (the wide
+    route, three contact rows a thread), condim 1 and 3, contacts
     between two moving bodies.  Held as chip_smoke.py holds it, by
     kernel_bench.check_cg_reruns: check_cg's per-env tolerance with a
     budget of twice the envs the plain solve itself misses when re-run at
@@ -321,7 +387,7 @@ def test_cg_kernel_humanoid(humanoid):
     gen = torch.Generator(device="cuda").manual_seed(8)
     (args, st), active = kernel_bench.contact_states(humanoid, 256, gen,
                                                      press=0.3)
-    assert cg_ops.kernel_name(st) == "cg_kernel<0>" and active > 0
+    assert cg_ops.kernel_name(st) == "cg_wide_kernel<3,1>" and active > 0
     assert st.nlimit + 4 * st.ncon == 21 + 4 * 177
     before = launch_counts["cg"]
     got = cg_ops.cg(*args, statics=st)

@@ -124,7 +124,7 @@ def test_tile_map_covers_matrix_once(nv):
     tr, tc = tpos.tile_shape(nv)
     assert (tr, tc) in tpos.TILE_SHAPES
     rs = tpos.tile_map(nv, tr, tc)
-    assert rs.shape == (32 * tpos.WARPS, tr * tc, 2)
+    assert rs.shape == (32 * tpos.tile_warps(tr, tc), tr * tc, 2)
     inside = rs[(rs >= 0).all(-1)]
     hits = np.zeros((nv, nv), int)
     np.add.at(hits, (inside[:, 0], inside[:, 1]), 1)
@@ -133,8 +133,83 @@ def test_tile_map_covers_matrix_once(nv):
 
 
 def test_tile_shape_rejects_wider_matrices():
-    widest = max(min(tpos.WARPS * tr, 32 * tc)
+    widest = max(min(tpos.tile_warps(tr, tc) * tr, 32 * tc)
                  for tr, tc in tpos.TILE_SHAPES)
     assert widest >= 96
     with pytest.raises(ValueError):
         tpos.tile_shape(widest + 1)
+
+
+@pytest.mark.parametrize("nv,tile", [(1, (16, 1)), (8, (16, 1)),
+                                     (14, (16, 1)), (16, (16, 1)),
+                                     (27, (32, 1)), (32, (32, 1)),
+                                     (33, (10, 3)), (73, (10, 3))])
+def test_tile_shape_picks_the_warp_route(nv, tile):
+    """Up to nv 32 one warp sweeps a matrix (the humanoid's 27, the ant's
+    14, the small scenes' 7); from 33 on, the twin's tile of 8 warps."""
+    assert tpos.tile_shape(nv) == tile
+    assert (tpos.tile_warps(*tile) == 1) == (nv <= 32)
+
+
+def test_source_instantiates_tile_shapes():
+    """The kernel source instantiates exactly TILE_SHAPES: TILE(TR, TC)
+    for the tiles of WARPS warps, WARP_TILE(T) for the one-warp route
+    (TC = 1), and its kWarps is WARPS."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tpos.__file__), os.pardir,
+                            "csrc", "position.cu")).read()
+    tiles = [tuple(map(int, t)) for t in
+             re.findall(r"^  TILE\((\d+), (\d+)\)$", src, re.M)]
+    warp = [(int(t), 1) for t in re.findall(r"^  WARP_TILE\((\d+)\)$", src,
+                                            re.M)]
+    assert tuple(warp + tiles) == tpos.TILE_SHAPES
+    assert tuple(warp) == tpos.WARP_TILES
+    assert int(re.search(r"constexpr int kWarps = (\d+);", src).group(1)) \
+        == tpos.WARPS
+
+
+def _warp_sweep(a, T):
+    """The one-warp route's sweep in numpy float32, lane by lane: lane s
+    holds column s of the Jacobi-scaled matrix in T registers (zeros
+    beyond nv); pivot k takes column k from lane k and row k from each
+    lane's own register k."""
+    nv = a.shape[0]
+    s = (1.0 / np.sqrt(np.diag(a))).astype(np.float32)
+    reg = np.zeros((32, T), np.float32)                 # reg[lane, row]
+    reg[:nv, :nv] = (a * s[:, None] * s[None, :]).T
+    lanes = np.arange(32)
+    for k in range(nv):
+        dinv = np.float32(1.0) / reg[k, k]
+        w = (reg[:, k] - (lanes == k)).astype(np.float32) * dinv
+        v = reg[k].copy()
+        v[k] -= np.float32(1.0)
+        reg -= w[:, None] * v[None, :]
+        reg[k, k] -= np.float32(2.0)
+    return -reg[:nv, :nv].T * s[:, None] * s[None, :]
+
+
+@pytest.mark.parametrize("scene", ["humanoid", "ant", "box_chain"])
+def test_warp_sweep_inverts_mass_matrices(scene):
+    """The one-warp route's arithmetic (numpy, float32) inverts qM and
+    qM + h diag(B) of the humanoid (nv 27, 32 rows a lane), the ant (14,
+    16) and the box chain (7, 16) at kernel A's tolerances: rtol 5e-3,
+    atol 1e-4 * scale against the float64 inverse and |A X - I| < 5e-3."""
+    from vnl_tpu_torch import compat, kernel_bench
+    from vnl_tpu_torch.physics import inertia
+    if scene == "box_chain":
+        m = compat.model_from_numpy(compat.BOX_CHAIN_MODEL, device="cpu")
+    else:
+        m = kernel_bench.scene(scene, device="cpu")[0]
+    T = tpos.tile_shape(m.nv)[0]
+    assert (T, 1) in tpos.WARP_TILES
+    qpos = kernel_bench.random_states(m, 3, torch.Generator().manual_seed(4))
+    qM = tpos.position_plain(m, qpos)[11].double().numpy()
+    hB = np.diag(m.opt.timestep * m.dof_damping.double().numpy())
+    assert inertia.needs_implicit_damping(m)
+    for A in np.concatenate([qM, qM + hB]):
+        got = _warp_sweep(A.astype(np.float32), T).astype(np.float64)
+        want = np.linalg.inv(A)
+        np.testing.assert_allclose(got, want, rtol=5e-3,
+                                   atol=1e-4 * np.abs(want).max())
+        assert np.abs(A @ got - np.eye(m.nv)).max() < 5e-3

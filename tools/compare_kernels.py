@@ -1,8 +1,9 @@
 """Times kernels A, B and C of two trees of the port on one CUDA device, in
-turns (old, new, new, old), at the shapes the rollout gives them (the
-rodent twin, 1024 envs; for C the (2, 1024, 73, 73) stack
-[qM, qM + h diag(B)]), and prints one JSON line with every turn and the
-median of each tree's turns.
+turns (old, new, new, old), at the shapes the rollouts give them (1024
+envs: the rodent twin's A, B and C, C on the (2, 1024, 73, 73) stack
+[qM, qM + h diag(B)]; the humanoid's A and B, its contact states pressed
+0.3 into the floor; the ant's A), and prints one JSON line with every
+turn and the median of each tree's turns.
 
 Each turn is a process of its own that imports ``vnl_tpu_torch`` from one
 tree, builds that tree's kernels and times ``ops.position._launch``,
@@ -25,6 +26,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 1024
+SCENES = ("humanoid", "ant")   # kernel_bench.scene: A (and B) at their shapes
+KEYS = ("position_ms", "cg_ms", "sweep_ms", "position_humanoid_ms",
+        "cg_humanoid_ms", "position_ant_ms")
 
 
 def time_tree(root: str) -> dict:
@@ -50,13 +54,23 @@ def time_tree(root: str) -> dict:
     qpos = kb.random_states(m, BATCH, gen)
     (args, st), _ = kb.contact_states(m, BATCH, gen)
     pair = kb.twin_pair(m, qpos)
-    return dict(root=os.path.relpath(root, ROOT),
-               position_ms=kb.time_ms(lambda: pos._launch(m, qpos), reps=50,
-                                      queued=kb.QUEUED),
-               cg_ms=kb.time_ms(lambda: cg_ops._launch(st, args), reps=50,
-                                queued=kb.QUEUED),
-               sweep_ms=kb.time_ms(lambda: sweep._launch(pair), reps=50,
-                                   queued=kb.QUEUED))
+
+    def ms(fn):
+        return kb.time_ms(fn, reps=50, queued=kb.QUEUED)
+
+    out = dict(root=os.path.relpath(root, ROOT),
+               position_ms=ms(lambda: pos._launch(m, qpos)),
+               cg_ms=ms(lambda: cg_ops._launch(st, args)),
+               sweep_ms=ms(lambda: sweep._launch(pair)))
+    for name in SCENES:
+        sm, kw = kb.scene(name)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q = kb.random_states(sm, BATCH, gen)
+        out[f"position_{name}_ms"] = ms(lambda: pos._launch(sm, q))
+        if "cg" in kw["kernels"]:
+            (a, s), _ = kb.contact_states(sm, BATCH, gen, kw["press"])
+            out[f"cg_{name}_ms"] = ms(lambda: cg_ops._launch(s, a))
+    return out
 
 
 def main() -> int:
@@ -91,8 +105,7 @@ def main() -> int:
         return statistics.median(t[key] for t in turns if t["tree"] == tree)
 
     print(json.dumps(dict(card=smi, batch=BATCH, turns=turns, **{
-        k: dict(old=med("old", k), new=med("new", k))
-        for k in ("position_ms", "cg_ms", "sweep_ms")})))
+        k: dict(old=med("old", k), new=med("new", k)) for k in KEYS})))
     return 0
 
 

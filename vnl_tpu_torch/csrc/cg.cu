@@ -36,6 +36,9 @@
 //    its rows' terms by shuffles and stores one partial, and every thread
 //    adds the warps' partials in warp order after the barrier the matvec
 //    needs anyway.
+//  * Two routes, by the number of constraint rows: up to 160 (the twin's
+//    159) the one described here; wider systems (the humanoid's 729) take
+//    cg_wide_kernel, whose design is set out above it.
 //  * The line search needs no barrier between its rounds: warp 0 holds the
 //    nlimit + 4 ncon rows' (J x - aref, J p, D) in registers, LSN rows a
 //    lane, reduces the active-set sums with xor shuffles and hands alpha to
@@ -59,6 +62,32 @@ struct CgModel {
   const int* side_dof;    // dofs of each side's chain, ascending
   const int* dof_start;   // (nv + 1) offsets into dof_side
   const int* dof_side;    // sides whose chain holds the dof
+};
+
+// The wide route's model (ops/cg.py kernel_tables): CgModel's fields in
+// its order, the group and chunk counts after its sizes, then the
+// per-body tables.  A struct of its own, so that the twin's route keeps
+// the parameters it was tuned with.  The wide route reads only the sizes
+// and limit tables of CgModel's part, but without the per-side tables
+// ptxas gave its humanoid instantiation 192 bytes of spills instead of 24
+// and the solve took 0.205 ms instead of 0.175 on an H100 at 1024 envs
+// (PERF.md section 6).
+struct CgWide {
+  int nv, ncon, nlimit, iters, ls_iters;
+  int ngrp, nchunk;       // groups (bodies with contacts) and chunks
+  const int* lim_dof;     // (nlimit) dof of each limit row
+  const int* lim_of_dof;  // (nv) limit row of each dof, -1 where none
+  const int* side_start;  // CgModel's per-side tables
+  const int* side_dof;
+  const int* dof_start;
+  const int* dof_side;
+  const int* grp_start;   // (ngrp + 1) offsets into grp_dof
+  const int* grp_dof;     // dofs of each group's chain, ascending
+  const int* grp_of_side; // (2 ncon) group of each side, ngrp if empty
+  const int* chunk_start; // (nchunk + 1) offsets into chunk_side
+  const int* chunk_side;  // each group's sides, ascending, in chunks
+  const int* dof_cstart;  // (nv + 1) offsets into dof_chunk
+  const int* dof_chunk;   // chunks whose chain holds the dof, ascending
 };
 
 struct CgIn {
@@ -488,33 +517,482 @@ cg_kernel(CgModel m, CgIn in, CgOut out, int skip) {
     out.con_f[(size_t)e * 4 * nc + r] = s.f[nl + r];
 }
 
-typedef void (*CgKernel)(CgModel, CgIn, CgOut, int);
+// ---------------------------------------------------------------------------
+// The route for wide systems (more than 160 rows; the humanoid has 729).
+// The twin's route above walks, per dof, every side whose chain holds the
+// dof: on the humanoid the six root dofs hold all 319 sides, so J^T f was
+// a serial walk of 319 steps on 27 threads while 229 waited; its line
+// search read 729 rows from shared memory on one warp.  Here:
+//  * J^T f as sums over the body tree.  A side's chain is that of one
+//    body, and the sides whose chain holds dof d are those whose body lies
+//    below d's body.  The sides are grouped by body and each group's list
+//    cut into chunks (ops/cg.py body_tables); one thread a (chunk,
+//    component) adds its sides' G f, then eight lanes a dof add, per
+//    component, the chunks of the bodies below the dof's body
+//    (dof_chunk), multiply by cdof and reduce by three shuffles.  The
+//    humanoid's longest walks are 9 sides and 37 chunks.
+//  * J v once a body: one walk a (group, component), read by each side of
+//    the group.  A group's dofs are its sides' dofs in the same order, so
+//    J v keeps the bits of the per-side walks.
+//  * Rows in registers.  Contact row t = 4 c + f lives in slot t / 256 of
+//    thread t % 256 (the four rows of a contact in four neighbouring
+//    lanes), limit row l in slot l / 256 of thread l % 256; the owner
+//    keeps J x, aref, D (read from global memory once) and computes J p,
+//    the forces and each contact's three force components (shuffles) in
+//    place.  The line search runs on all warps: per round a warp sum, one
+//    barrier, and every thread adds the eight warps' partials in warp
+//    order, so every thread holds the same alpha and two launches agree.
+//  * g36 and mu are staged by cp.async behind the first J x walk, qM and
+//    qMinv behind the first gradient.
+// ---------------------------------------------------------------------------
 
-// The line search keeps up to 5 rows a lane in registers (160 rows; the
-// rodent has 159); wider systems read them from shared memory.
+// Offsets (in floats) into dynamic shared memory of the wide route; every
+// buffer starts on 16 bytes.
+struct WLayout {
+  int M, Minv, cdof, g, mu, x, Mxa, gr, p, Mp, tmp, jtf, grp, fv, lf, part,
+      gos, red, total;
+};
+
+__host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline WLayout make_wlayout(const CgWide& m) {
+  const int nv = m.nv, nc = m.ncon;
+  WLayout L;
+  int o = 0;
+  L.M = o;     o += up4(nv * nv + 3);   // + room for the 16-byte shift
+  L.Minv = o;  o += up4(nv * nv + 3);
+  L.cdof = o;  o += up4(nv * 6);
+  L.g = o;     o += up4(36 * nc + 3);
+  L.mu = o;    o += up4(2 * nc + 3);
+  L.x = o;     o += up4(nv);
+  L.Mxa = o;   o += up4(nv);
+  L.gr = o;    o += up4(nv);
+  L.p = o;     o += up4(nv);
+  L.Mp = o;    o += up4(nv);
+  L.tmp = o;   o += up4(nv);
+  L.jtf = o;   o += up4(nv);
+  L.grp = o;   o += up4((m.ngrp + 1) * 6);   // J v per group; a zero group
+  L.fv = o;    o += up4(3 * nc);             // G's three force components
+  L.lf = o;    o += up4(m.nlimit);           // lsign f of the limit rows
+  L.part = o;  o += up4(m.nchunk * 6);       // J^T f per chunk
+  L.gos = o;   o += up4(2 * nc);             // (int) grp_of_side
+  L.red = o;   o += 2 * kMaxWarps + 4 * kMaxWarps;  // matvecs', line search's
+  L.total = o;
+  return L;
+}
+
+// First half of J v: per group and spatial component, the sum of cdof[d]
+// v[d] over the group's chain, in ascending order (as jv_sides).
+__device__ void jv_groups(const CgWide& m, const float* cdof, const float* v,
+                          float* grp, int t0, int n, int skip) {
+  for (int i = t0; i < 6 * m.ngrp; i += n) {
+    const int gi = i / 6, k = i - gi * 6;
+    const int lo = m.grp_start[gi];
+    const int hi = (skip & 1) ? lo : m.grp_start[gi + 1];
+    float acc = 0.0f;
+    int t = lo;
+    for (; t + 4 <= hi; t += 4) {
+      int d[4];
+      float c[4], x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) d[u] = m.grp_dof[t + u];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        c[u] = cdof[d[u] * 6 + k];
+        x[u] = v[d[u]];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc += c[u] * x[u];
+    }
+    for (; t < hi; ++t) {
+      const int d = m.grp_dof[t];
+      acc += cdof[d * 6 + k] * v[d];
+    }
+    grp[i] = acc;
+  }
+}
+
+// Second half of J v for the contact rows a thread owns (as jv_rows): the
+// three lanes f < 3 of a contact form G (chain2 - chain1) J of the
+// contact's frame row f, all four lanes of it take the facets.
+template <int NCS>
+__device__ __forceinline__ void jv_owned(int nc, const float* g,
+                                         const float* mu, const float* grp,
+                                         const int* gos, float (&out)[NCS]) {
+  const int lane = threadIdx.x & 31, q0 = lane & ~3;
+#pragma unroll
+  for (int q = 0; q < NCS; ++q) {
+    const int t = threadIdx.x + kThreads * q, c = t >> 2, f = t & 3;
+    const bool ok = c < nc;
+    float base = 0.0f;
+    if (ok && f < 3) {
+      const float* s2 = grp + gos[c] * 6;
+      const float* s1 = grp + gos[nc + c] * 6;
+      for (int k = 0; k < 6; ++k)
+        base += g[(f * 6 + k) * nc + c] * s2[k] -
+                g[(18 + f * 6 + k) * nc + c] * s1[k];
+    }
+    const float b0 = __shfl_sync(0xffffffffu, base, q0);
+    const float b1 = __shfl_sync(0xffffffffu, base, q0 + 1);
+    const float b2 = __shfl_sync(0xffffffffu, base, q0 + 2);
+    float jv = 0.0f;
+    if (ok) {
+      const float m1 = mu[c * 2 + (f >> 1)];
+      const float bb = (f < 2) ? b1 : b2;
+      jv = (f & 1) ? b0 - m1 * bb : b0 + m1 * bb;
+    }
+    out[q] = jv;
+  }
+}
+
+// The forces of the rows a thread owns at J x = jx: each contact's three
+// force components into fv (its lanes f < 3), lsign f of the limit rows
+// into lf.
+template <int NCS, int NLS>
+__device__ __forceinline__ void publish_forces(
+    int nc, int nl, const float* mu, const float (&jx)[NCS],
+    const float (&aref)[NCS], const float (&D)[NCS], const float (&ljx)[NLS],
+    const float (&laref)[NLS], const float (&lD)[NLS],
+    const float (&lsign)[NLS], float* fv, float* lf) {
+  const int lane = threadIdx.x & 31, q0 = lane & ~3;
+#pragma unroll
+  for (int q = 0; q < NCS; ++q) {
+    const int t = threadIdx.x + kThreads * q, c = t >> 2, f = t & 3;
+    const bool ok = c < nc;
+    const float fr = ok ? force(jx[q], aref[q], D[q]) : 0.0f;
+    const float f0 = __shfl_sync(0xffffffffu, fr, q0);
+    const float f1 = __shfl_sync(0xffffffffu, fr, q0 + 1);
+    const float f2 = __shfl_sync(0xffffffffu, fr, q0 + 2);
+    const float f3 = __shfl_sync(0xffffffffu, fr, q0 + 3);
+    if (ok && f < 3)
+      fv[c * 3 + f] = f == 0 ? f0 + f1 + f2 + f3
+                    : f == 1 ? mu[c * 2] * (f0 - f1)
+                             : mu[c * 2 + 1] * (f2 - f3);
+  }
+#pragma unroll
+  for (int q = 0; q < NLS; ++q) {
+    const int l = threadIdx.x + kThreads * q;
+    if (l < nl) lf[l] = lsign[q] * force(ljx[q], laref[q], lD[q]);
+  }
+}
+
+// J^T f, first level: per (chunk, component) the sum over the chunk's
+// sides of +-(G f) of the side, G f = sum_f g[sd, f, k, c] fv[c, f].
+__device__ void jtf_chunks(const CgWide& m, const float* g, const float* fv,
+                           float* part, int skip) {
+  const int nc = m.ncon;
+  for (int i = threadIdx.x; i < 6 * m.nchunk; i += kThreads) {
+    const int ch = i / 6, k = i - ch * 6;
+    const int lo = m.chunk_start[ch];
+    const int hi = (skip & 2) ? lo : m.chunk_start[ch + 1];
+    float acc = 0.0f;
+    int t = lo;
+    for (; t + 2 <= hi; t += 2) {   // two sides' loads before their sums
+      float gf[2];
+      bool neg[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int sc = m.chunk_side[t + u];
+        neg[u] = sc >= nc;
+        const int c = neg[u] ? sc - nc : sc;
+        const float* gs = g + (neg[u] ? 18 : 0) * nc + k * nc + c;
+        gf[u] = gs[0] * fv[c * 3] + gs[6 * nc] * fv[c * 3 + 1] +
+                gs[12 * nc] * fv[c * 3 + 2];
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) acc += neg[u] ? -gf[u] : gf[u];
+    }
+    for (; t < hi; ++t) {
+      const int sc = m.chunk_side[t];
+      const bool neg = sc >= nc;
+      const int c = neg ? sc - nc : sc;
+      const float* gs = g + (neg ? 18 : 0) * nc + k * nc + c;
+      const float gf = gs[0] * fv[c * 3] + gs[6 * nc] * fv[c * 3 + 1] +
+                       gs[12 * nc] * fv[c * 3 + 2];
+      acc += neg ? -gf : gf;
+    }
+    part[i] = acc;
+  }
+}
+
+// J^T f, second level, and the gradient out = Mxa - J^T f: eight lanes a
+// dof, lane k < 6 adds component k of the chunks below the dof's body and
+// multiplies by cdof[d, k]; three shuffles add the lanes.
+__device__ void grad_tree(const CgWide& m, const float* cdof,
+                          const float* part, const float* lf, const float* Mxa,
+                          float* jtf, float* out, int skip) {
+  const int k = threadIdx.x & 7, lane = threadIdx.x & 31;
+  const unsigned mask = 0xffu << (lane & ~7);
+  for (int d0 = 0; d0 < m.nv; d0 += kThreads / 8) {
+    const int d = d0 + (threadIdx.x >> 3);
+    if (d >= m.nv) continue;     // the eight lanes of a dof agree
+    float u = 0.0f;
+    if (k < 6) {
+      const int lo = m.dof_cstart[d];
+      const int hi = (skip & 2) ? lo : m.dof_cstart[d + 1];
+      int t = lo;
+      for (; t + 4 <= hi; t += 4) {
+        int ch[4];
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ch[i] = m.dof_chunk[t + i];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = part[ch[i] * 6 + k];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) u += v[i];
+      }
+      for (; t < hi; ++t) u += part[m.dof_chunk[t] * 6 + k];
+      u *= cdof[d * 6 + k];
+    }
+    u += __shfl_xor_sync(mask, u, 4, 8);
+    u += __shfl_xor_sync(mask, u, 2, 8);
+    u += __shfl_xor_sync(mask, u, 1, 8);
+    if (k == 0) {
+      const int l = m.lim_of_dof[d];
+      const float j = l >= 0 ? u + lf[l] : u;
+      jtf[d] = j;
+      out[d] = Mxa[d] - j;
+    }
+  }
+}
+
+// NCS, NLS: slots of contact rows and of limit rows a thread holds, so
+// 4 ncon <= 256 NCS and nlimit <= 256 NLS.  skip as for cg_kernel.
+template <int NCS, int NLS>
+__global__ void __launch_bounds__(kThreads, 4)
+cg_wide_kernel(CgWide m, CgIn in, CgOut out, int skip) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int nv = m.nv, nc = m.ncon, nl = m.nlimit;
+  const int e = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int mvw = (nv + 31) >> 5, mvt = mvw * 32;
+
+  const WLayout L = make_wlayout(m);
+  float* cdof = sm + L.cdof;
+  float *x = sm + L.x, *Mxa = sm + L.Mxa, *gr = sm + L.gr, *p = sm + L.p;
+  float *Mp = sm + L.Mp, *tmp = sm + L.tmp, *jtf = sm + L.jtf;
+  float *grp = sm + L.grp, *fv = sm + L.fv, *lf = sm + L.lf;
+  float *part = sm + L.part, *red = sm + L.red;
+  float* lsred = red + 2 * kMaxWarps;   // two buffers of 2 kMaxWarps
+  int* gos = reinterpret_cast<int*>(sm + L.gos);
+
+  // the contact data, then the matrices, start moving
+  const float* g = stage(sm + L.g, in.g36 + (size_t)e * 36 * nc, 36 * nc);
+  const float* mu = stage(sm + L.mu, in.con_mu + (size_t)e * 2 * nc, 2 * nc);
+  asm volatile("cp.async.commit_group;\n" ::);
+  const size_t mo = (size_t)e * nv * nv;
+  const float* M = stage(sm + L.M, in.qM + mo, nv * nv);
+  const float* Minv = stage(sm + L.Minv, in.qMinv + mo, nv * nv);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  for (int i = tid; i < nv * 6; i += kThreads)
+    cdof[i] = in.cdof[(size_t)e * nv * 6 + i];
+  for (int i = tid; i < nv; i += kThreads) {
+    x[i] = in.x0[(size_t)e * nv + i];
+    Mxa[i] = 0.0f;  // x starts at qacc_smooth, so M(x - a) starts at 0
+  }
+  for (int i = tid; i < 2 * nc; i += kThreads) gos[i] = m.grp_of_side[i];
+  for (int i = tid; i < 6; i += kThreads) grp[6 * m.ngrp + i] = 0.0f;
+  // the rows this thread owns: aref and D stay in registers
+  float jx[NCS], aref[NCS], D[NCS];
+  float ljx[NLS], laref[NLS], lD[NLS], lsign[NLS];
+  int ldof[NLS];
+#pragma unroll
+  for (int q = 0; q < NCS; ++q) {
+    const int t = tid + kThreads * q;
+    const bool ok = t < 4 * nc;
+    aref[q] = ok ? in.con_aref[(size_t)e * 4 * nc + t] : 0.0f;
+    D[q] = ok ? in.con_D[(size_t)e * 4 * nc + t] : 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < NLS; ++q) {
+    const int l = tid + kThreads * q;
+    const bool ok = l < nl;
+    laref[q] = ok ? in.lim_aref[(size_t)e * nl + l] : 0.0f;
+    lD[q] = ok ? in.lim_D[(size_t)e * nl + l] : 0.0f;
+    lsign[q] = ok ? in.lim_sign[(size_t)e * nl + l] : 0.0f;
+    ldof[q] = ok ? m.lim_dof[l] : 0;
+  }
+  __syncthreads();
+
+  // gradient at x0
+  jv_groups(m, cdof, x, grp, tid, kThreads, skip);
+  asm volatile("cp.async.wait_group 1;\n" ::);
+  __syncthreads();
+  jv_owned<NCS>(nc, g, mu, grp, gos, jx);
+#pragma unroll
+  for (int q = 0; q < NLS; ++q) ljx[q] = lsign[q] * x[ldof[q]];
+  publish_forces<NCS, NLS>(nc, nl, mu, jx, aref, D, ljx, laref, lD, lsign, fv,
+                           lf);
+  __syncthreads();
+  jtf_chunks(m, g, fv, part, skip);
+  __syncthreads();
+  grad_tree(m, cdof, part, lf, Mxa, jtf, gr, skip);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  if (warp < mvw)
+    matvec_dots(nv, Minv, gr, Mp, gr, nullptr, gr, red, skip);
+  __syncthreads();
+  float gMg, unused;
+  read_dots(red, mvw, &gMg, &unused);
+  for (int i = tid; i < nv; i += kThreads) p[i] = -Mp[i];
+  __syncthreads();
+
+  for (int it = 0; it < m.iters; ++it) {
+    // Mp = M p with the partial sums of p . Mxa and p . Mp on the first
+    // warps, the per-body half of J p on the others
+    if (warp < mvw)
+      matvec_dots(nv, M, p, Mp, p, Mxa, p, red, skip);
+    else
+      jv_groups(m, cdof, p, grp, tid - mvt, kThreads - mvt, skip);
+    __syncthreads();
+    float jp[NCS], ljp[NLS];
+    jv_owned<NCS>(nc, g, mu, grp, gos, jp);
+#pragma unroll
+    for (int q = 0; q < NLS; ++q) ljp[q] = lsign[q] * p[ldof[q]];
+
+    // exact line search on the piecewise quadratic along p, on all warps
+    float num0, den0;
+    read_dots(red, mvw, &num0, &den0);
+    float jar[NCS], Dj[NCS], ljar[NLS], lDj[NLS];
+#pragma unroll
+    for (int q = 0; q < NCS; ++q) {
+      jar[q] = jx[q] - aref[q];
+      Dj[q] = D[q] * jp[q];
+    }
+#pragma unroll
+    for (int q = 0; q < NLS; ++q) {
+      ljar[q] = ljx[q] - laref[q];
+      lDj[q] = lD[q] * ljp[q];
+    }
+    float al = 0.0f;
+    for (int ls = 0; ls < m.ls_iters; ++ls) {
+      float a = 0.0f, b = 0.0f;
+#pragma unroll
+      for (int q = 0; q < NCS; ++q) {
+        if (jar[q] + al * jp[q] < 0.0f) {
+          a += Dj[q] * jar[q];
+          b += Dj[q] * jp[q];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NLS; ++q) {
+        if (ljar[q] + al * ljp[q] < 0.0f) {
+          a += lDj[q] * ljar[q];
+          b += lDj[q] * ljp[q];
+        }
+      }
+      a = warp_sum(a);
+      b = warp_sum(b);
+      float* buf = lsred + (ls & 1) * 2 * kMaxWarps;
+      if (lane == 0) {
+        buf[2 * warp] = a;
+        buf[2 * warp + 1] = b;
+      }
+      __syncthreads();
+      read_dots(buf, kMaxWarps, &a, &b);
+      al = -(num0 + a) / fmaxf(den0 + b, 1e-12f);
+    }
+    const float alpha = al;
+
+    for (int i = tid; i < nv; i += kThreads) {
+      x[i] += alpha * p[i];
+      Mxa[i] += alpha * Mp[i];
+    }
+#pragma unroll
+    for (int q = 0; q < NCS; ++q) jx[q] += alpha * jp[q];
+#pragma unroll
+    for (int q = 0; q < NLS; ++q) ljx[q] += alpha * ljp[q];
+    publish_forces<NCS, NLS>(nc, nl, mu, jx, aref, D, ljx, laref, lD, lsign,
+                             fv, lf);
+    __syncthreads();
+    jtf_chunks(m, g, fv, part, skip);
+    __syncthreads();
+    grad_tree(m, cdof, part, lf, Mxa, jtf, tmp, skip);  // g_new
+    __syncthreads();
+    // Mg_new into Mp (spent by now); sums of g_new . Mg_new and g . Mg_new
+    if (warp < mvw)
+      matvec_dots(nv, Minv, tmp, Mp, tmp, nullptr, gr, red, skip);
+    __syncthreads();
+    float gnMgn, gMgn;
+    read_dots(red, mvw, &gnMgn, &gMgn);
+    const float beta = fmaxf(0.0f, (gnMgn - gMgn) / fmaxf(gMg, 1e-12f));
+    for (int i = tid; i < nv; i += kThreads) {
+      p[i] = -Mp[i] + beta * p[i];
+      gr[i] = tmp[i];
+    }
+    gMg = gnMgn;
+    __syncthreads();
+  }
+
+  // f and jtf are those of the final x
+  for (int i = tid; i < nv; i += kThreads) {
+    out.qacc[(size_t)e * nv + i] = x[i];
+    out.qfrc[(size_t)e * nv + i] = jtf[i];
+  }
+#pragma unroll
+  for (int q = 0; q < NCS; ++q) {
+    const int t = tid + kThreads * q;
+    if (t < 4 * nc)
+      out.con_f[(size_t)e * 4 * nc + t] = force(jx[q], aref[q], D[q]);
+  }
+}
+
+typedef void (*CgKernel)(CgModel, CgIn, CgOut, int);
+typedef void (*CgWideKernel)(CgWide, CgIn, CgOut, int);
+
+// The routes, by the number of constraint rows: up to 160 rows (the
+// rodent has 159) the line search keeps 5 rows a lane of warp 0 in
+// registers; up to 1,024 contact rows and 256 limit rows the wide route;
+// wider systems read their rows from shared memory in every round.
+// ops/cg.py kernel_name names the same routes.
+static int wide_slots(const CgModel& m) {
+  return (4 * m.ncon + kThreads - 1) / kThreads;
+}
+
+static bool takes_wide(const CgModel& m) {
+  return m.nlimit + 4 * m.ncon > 32 * 5 && wide_slots(m) <= 4 &&
+         m.nlimit <= kThreads;
+}
+
 static CgKernel pick_kernel(const CgModel& m) {
   return m.nlimit + 4 * m.ncon <= 32 * 5 ? cg_kernel<5> : cg_kernel<0>;
 }
 
-static size_t smem_bytes(const CgModel& m) {
-  return (size_t)make_layout(m.nv, m.ncon, m.nlimit).total * sizeof(float);
+static CgWideKernel pick_wide_kernel(const CgModel& m) {
+  switch (wide_slots(m)) {
+    case 1: return cg_wide_kernel<1, 1>;
+    case 2: return cg_wide_kernel<2, 1>;
+    case 3: return cg_wide_kernel<3, 1>;
+    default: return cg_wide_kernel<4, 1>;
+  }
+}
+
+// The kernel of a system and its shared memory per block.
+static const void* route(const CgModel& m, const CgWide& w, size_t* smem) {
+  if (takes_wide(m)) {
+    *smem = (size_t)make_wlayout(w).total * sizeof(float);
+    return (const void*)pick_wide_kernel(m);
+  }
+  *smem = (size_t)make_layout(m.nv, m.ncon, m.nlimit).total * sizeof(float);
+  return (const void*)pick_kernel(m);
 }
 
 // out4 = registers per thread, local-memory bytes per thread, shared-memory
 // bytes per block, resident blocks per SM.
-extern "C" int cg_resources(CgModel m, int* out4) {
-  CgKernel fn = pick_kernel(m);
+extern "C" int cg_resources(CgModel m, CgWide w, int* out4) {
+  size_t smem = 0;
+  const void* fn = route(m, w, &smem);
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, (const void*)fn);
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(m);
-  err = cudaFuncSetAttribute((const void*)fn,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, (const void*)fn, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                      smem);
   out4[0] = a.numRegs;
   out4[1] = (int)a.localSizeBytes;
   out4[2] = (int)(smem + a.sharedSizeBytes);
@@ -522,15 +1000,19 @@ extern "C" int cg_resources(CgModel m, int* out4) {
   return (int)err;
 }
 
-extern "C" int cg_launch(CgModel m, CgIn in, CgOut out, int batch,
+extern "C" int cg_launch(CgModel m, CgWide w, CgIn in, CgOut out, int batch,
                          void* stream, int skip) {
   // the matvecs need a thread per dof and leave a warp for J p
   if (kThreads < 32 * ((m.nv + 31) / 32 + 1)) return (int)cudaErrorInvalidValue;
-  CgKernel fn = pick_kernel(m);
-  const size_t smem = smem_bytes(m);
+  size_t smem = 0;
+  const void* fn = route(m, w, &smem);
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<batch, kThreads, smem, (cudaStream_t)stream>>>(m, in, out, skip);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (takes_wide(m))
+    ((CgWideKernel)fn)<<<batch, kThreads, smem, st>>>(w, in, out, skip);
+  else
+    ((CgKernel)fn)<<<batch, kThreads, smem, st>>>(m, in, out, skip);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,9 @@
 //    static descendant list, one thread per (body, component), in list
 //    order: no step per tree level, no atomics, the same result on every
 //    run.  qM is filled from the static list of (dof, ancestor dof) pairs.
+//  * Two routes for the sweeps, by nv: up to 32 dofs one warp sweeps one
+//    matrix, lane s holding column s (position_warp_kernel, below); wider
+//    models take the register tiles of NW warps a matrix described next.
 //  * Sweeps in registers.  Each matrix has its own NW warps.  Thread
 //    (warp, lane) of a matrix owns its entries (r, s) = (warp + i * NW,
 //    lane + 32 * j), i < TR, j < TC, for all pivots; TR and TC are template
@@ -205,23 +208,17 @@ __device__ __forceinline__ void publish_row(const float (&a)[TR][TC], int kn,
   }
 }
 
-// NW warps sweep one matrix; the block has NW * NMAT warps.
-// skip (profiling only, the outputs are then wrong): bit 0 leaves out the
-// pivot loop, bit 1 cuts the subtree sums to each body's own term, bit 2
-// leaves out the doubling rounds of the walk, bit 3 the assembly of qM.
-template <int NW, int TR, int TC, int NMAT>
-__global__ void __launch_bounds__(NW * NMAT * 32, 2)
-position_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
-                int skip) {
-  extern __shared__ float sm[];
-  constexpr int CP = 32 * TC, NT = NW * NMAT * 32;
-  constexpr int SNAP = CP + 1;   // one pivot snapshot: row | 1 / pivot
+// The position stage of env e up to the sweeps, on the NT threads of its
+// block, with its quantities at sm in the layout L.  Writes every output
+// but the inverses and leaves qM in sm + L.mat and the Jacobi scales of the
+// NMAT matrices in sm + L.scl.  skip: bits 1-3 as for position_kernel.
+template <int NT, int NMAT>
+__device__ __forceinline__ void stage_to_qM(const PosModel& m,
+                                            const float* __restrict__ qpos_g,
+                                            const PosOut& out, int skip,
+                                            float* sm, const Layout& L, int e,
+                                            int tid) {
   const int nb = m.nb, nj = m.nj, nv = m.nv, nq = m.nq, ng = m.ng;
-  const int e = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  const Layout L = make_layout(m, CP, NMAT);
   float* qpos = sm + L.qpos;
   float* xpos = sm + L.xpos;
   float* xquat = sm + L.xquat;
@@ -236,7 +233,6 @@ position_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
   float* A = sm + L.mat;
   float* cin = sm + L.mat;
   float* scl = sm + L.scl;
-  float* snap = sm;   // Layout.snap is 0: constant addresses in the sweep
 
   const Walk W = make_walk(m);
   float* pos2 = sm + L.mat + W.pos2;
@@ -508,6 +504,29 @@ position_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
     scl[i] = rsqrtf(fmaxf(d, 1e-30f));
   }
   __syncthreads();
+}
+
+// NW warps sweep one matrix; the block has NW * NMAT warps.
+// skip (profiling only, the outputs are then wrong): bit 0 leaves out the
+// pivot loop, bit 1 cuts the subtree sums to each body's own term, bit 2
+// leaves out the doubling rounds of the walk, bit 3 the assembly of qM.
+template <int NW, int TR, int TC, int NMAT>
+__global__ void __launch_bounds__(NW * NMAT * 32, 2)
+position_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
+                int skip) {
+  extern __shared__ float sm[];
+  constexpr int CP = 32 * TC, NT = NW * NMAT * 32;
+  constexpr int SNAP = CP + 1;   // one pivot snapshot: row | 1 / pivot
+  const int nv = m.nv;
+  const int e = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  const Layout L = make_layout(m, CP, NMAT);
+  stage_to_qM<NT, NMAT>(m, qpos_g, out, skip, sm, L, e, tid);
+  const float* A = sm + L.mat;
+  const float* scl = sm + L.scl;
+  float* snap = sm;   // Layout.snap is 0: constant addresses in the sweep
 
   // ---- my matrix, scaled, into my register tile ----
   const int mi = (NMAT == 1) ? 0 : warp / NW;   // which matrix my warp sweeps
@@ -603,34 +622,131 @@ position_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The route for nv <= 32: one warp sweeps one matrix, with no barrier.
+// Below 32 dofs the tiles above are mostly padding (nv 14 and 27 take the
+// twin's (10, 3): 8 warps a matrix for 96 columns) and every pivot costs
+// a named barrier over 8 warps.  Here lane s owns column s and holds all T
+// rows of it in registers (T = 16 or 32, the pivot loop unrolled, so every
+// row index is a constant); for pivot k the column entries (r, k) come by
+// shuffles from lane k and the pivot row entry is the lane's own register.
+// A block is one env of NMAT warps, which also run its walk, sums and qM
+// assembly (stage_to_qM on 32 NMAT threads): all 1024 envs are resident at
+// once on 132 SMs.  Blocks of 2 and 4 envs (named barriers per env) took
+// the same time on the humanoid and the ant (PERF.md).
+// ---------------------------------------------------------------------------
+template <int T, int NMAT>
+__global__ void __launch_bounds__(NMAT * 32)
+position_warp_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
+                     int skip) {
+  extern __shared__ float sm[];
+  constexpr int NT = NMAT * 32;
+  const int e = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, mi = tid >> 5;   // which matrix my warp sweeps
+  const int nv = m.nv;
+
+  const Layout L = make_layout(m, 0, NMAT);
+  stage_to_qM<NT, NMAT>(m, qpos_g, out, skip, sm, L, e, tid);
+  const float* A = sm + L.mat;
+  const float* myscl = sm + L.scl + mi * nv;
+
+  // ---- column `lane` of my matrix, scaled, into registers ----
+  const bool col = lane < nv;
+  const float sc = col ? myscl[lane] : 0.0f;
+  float a[T];
+#pragma unroll
+  for (int r = 0; r < T; ++r) {
+    float x = 0.0f;
+    if (r < nv && col) {
+      x = A[r * nv + lane];
+      if (mi == 1 && r == lane) x += m.hB[r];
+      x *= myscl[r] * sc;
+    }
+    a[r] = x;
+  }
+
+  // ---- symmetric sweep (as in position_kernel): for pivot k, with
+  // column and row k as they were before the update,
+  //   v = A[:,k] - e_k,  w = (A[k,:] - e_k) / A[k,k],
+  //   A <- A - v w^T,    A[k,k] <- A[k,k] - 2 ----
+  const int npiv = (skip & 1) ? 0 : nv;
+#pragma unroll
+  for (int k = 0; k < T; ++k) {
+    if (k < npiv) {
+      const float dinv = 1.0f / __shfl_sync(0xffffffffu, a[k], k);
+      const float w = (lane == k ? a[k] - 1.0f : a[k]) * dinv;
+#pragma unroll
+      for (int r = 0; r < T; ++r) {
+        float v = __shfl_sync(0xffffffffu, a[r], k);
+        if (r == k) v -= 1.0f;
+        a[r] -= v * w;
+      }
+      if (lane == k) a[k] -= 2.0f;   // the rank-1 form over-counts it by 2
+    }
+  }
+
+  // ---- sign and unscale; neighbouring lanes store neighbouring columns ----
+  float* o = (mi ? out.qMhBinv : out.qMinv) + (size_t)e * nv * nv;
+#pragma unroll
+  for (int r = 0; r < T; ++r)
+    if (r < nv && col) o[r * nv + lane] = -a[r] * myscl[r] * sc;
+}
+
 typedef void (*PositionKernel)(PosModel, const float*, PosOut, int);
 
 constexpr int kWarps = 8;   // warps that sweep one matrix
 
-// The instantiated tiles: (TR, TC) covers nv <= min(kWarps * TR, 32 * TC).
-// ops/position.py lists the same shapes (TILE_SHAPES) and chooses.
+// The instantiated tiles: (TR, TC) covers nv <= min(kWarps * TR, 32 * TC);
+// a tile with TC = 1 is the one-warp route (one warp a matrix, TR rows a
+// lane), which covers nv <= TR.  ops/position.py lists the same shapes
+// (TILE_SHAPES) and chooses.
 static PositionKernel pick_kernel(int tr, int tc, int nmat) {
 #define TILE(TR, TC)                                          \
   if (tr == TR && tc == TC)                                   \
     return nmat == 2 ? position_kernel<kWarps, TR, TC, 2>     \
                      : position_kernel<kWarps, TR, TC, 1>;
-  TILE(1, 1)
   TILE(10, 3)
   TILE(12, 3)
 #undef TILE
   return nullptr;
 }
 
+static PositionKernel pick_warp_kernel(int tr, int tc, int nmat) {
+#define WARP_TILE(T)                                                  \
+  if (tr == T && tc == 1)                                             \
+    return nmat == 2 ? position_warp_kernel<T, 2>                     \
+                     : position_warp_kernel<T, 1>;
+  WARP_TILE(16)
+  WARP_TILE(32)
+#undef WARP_TILE
+  return nullptr;
+}
+
 static size_t smem_bytes(const PosModel& m, int tc) {
-  return (size_t)make_layout(m, 32 * tc, m.damped ? 2 : 1).total *
-         sizeof(float);
+  return (size_t)make_layout(m, tc == 1 ? 0 : 32 * tc, m.damped ? 2 : 1)
+             .total * sizeof(float);
+}
+
+// The kernel of a tile and its threads per block; nullptr where the tile
+// is not instantiated or does not cover the model.
+static PositionKernel route(const PosModel& m, int tr, int tc, int* threads) {
+  const int nmat = m.damped ? 2 : 1;
+  if (m.nv > 0xffff) return nullptr;
+  if (tc == 1) {
+    *threads = nmat * 32;
+    PositionKernel fn = pick_warp_kernel(tr, tc, nmat);
+    return m.nv <= tr ? fn : nullptr;
+  }
+  *threads = kWarps * nmat * 32;
+  PositionKernel fn = pick_kernel(tr, tc, nmat);
+  return (m.nv <= kWarps * tr && m.nv <= 32 * tc) ? fn : nullptr;
 }
 
 // out4 = registers per thread, local-memory bytes per thread, shared-memory
 // bytes per block, resident blocks per SM.
 extern "C" int position_resources(PosModel m, int tr, int tc, int* out4) {
-  const int nmat = m.damped ? 2 : 1;
-  PositionKernel fn = pick_kernel(tr, tc, nmat);
+  int threads = 0;
+  PositionKernel fn = route(m, tr, tc, &threads);
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, (const void*)fn);
@@ -642,7 +758,7 @@ extern "C" int position_resources(PosModel m, int tr, int tc, int* out4) {
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, (const void*)fn, kWarps * nmat * 32, smem);
+      &blocks, (const void*)fn, threads, smem);
   out4[0] = a.numRegs;
   out4[1] = (int)a.localSizeBytes;
   out4[2] = (int)(smem + a.sharedSizeBytes);
@@ -653,15 +769,13 @@ extern "C" int position_resources(PosModel m, int tr, int tc, int* out4) {
 extern "C" int position_launch(PosModel m, const float* qpos, PosOut out,
                                int batch, int tr, int tc, void* stream,
                                int skip) {
-  const int nmat = m.damped ? 2 : 1;
-  PositionKernel fn = pick_kernel(tr, tc, nmat);
-  if (!fn || m.nv > kWarps * tr || m.nv > 32 * tc || m.nv > 0xffff)
-    return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  PositionKernel fn = route(m, tr, tc, &threads);
+  if (!fn) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(m, tc);
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<batch, kWarps * nmat * 32, smem, (cudaStream_t)stream>>>(m, qpos, out,
-                                                                  skip);
+  fn<<<batch, threads, smem, (cudaStream_t)stream>>>(m, qpos, out, skip);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 C on one CUDA device, at the shapes the rollout gives them (the rodent
 twin, B envs; for C the stacked pair [qM, qM + h diag(B)] of B envs).
 
-``stage_split`` times kernel A whole and with its sweeps, its subtree sums,
+``stage_split`` times, at the model's shapes (``scene``: the humanoid's or
+the ant's), kernel A whole and with its sweeps, its subtree sums,
 the doubling rounds of its tree walk, its qM assembly or all four left out
 (the profiling ``skip`` bits of ``ops.position._launch``), and kernel B
 whole, with no line search, with no CG iteration and with its chain walks
@@ -229,43 +230,73 @@ def twin_pair(m, qpos):
     return torch.stack([qM, qM + hB]).contiguous()
 
 
-def stage_split(m, batch: int = 1024, seed: int = 0) -> dict:
+SCENE_PRESS = dict(humanoid=0.3, ant=0.3)   # both float at qpos0
+
+
+def scene(name: str, device="cuda"):
+    """(model, press=..., kernels=...): the stage_split arguments of the
+    humanoid (kernels A and B, CG 6 / 6) or the ant (kernel A; its Newton
+    solve never takes B), compiled from the committed scenes."""
+    from vnl_tpu_torch import compat, mjcf
+    if name == "humanoid":
+        m = mjcf.load_model(compat.DM_HUMANOID_XML, overrides=dict(
+            solver="cg", iterations=6, ls_iterations=6), device=device)
+        return m, dict(press=SCENE_PRESS[name], kernels=("position", "cg"))
+    if name == "ant":
+        m = mjcf.load_model(compat.GYM_ANT_XML, overrides=dict(
+            solver="newton", iterations=1, ls_iterations=4), device=device)
+        return m, dict(press=SCENE_PRESS[name], kernels=("position",))
+    raise ValueError(f"no scene {name!r}")
+
+
+def stage_split(m, batch: int = 1024, seed: int = 0, press: float = 0.005,
+                kernels=("position", "cg", "sweep")) -> dict:
     """Milliseconds per launch of kernels A, B and C with stages left out,
-    and their resources, for the model ``m`` on its CUDA device."""
+    and their resources, for the model ``m`` on its CUDA device.  Kernel
+    B's contact states have the root lowered by ``press`` (the humanoid
+    needs 0.3 to touch the floor); ``kernels`` names the ones to time."""
     from vnl_tpu_torch.ops import cg as cg_ops
     from vnl_tpu_torch.ops import position as pos
     from vnl_tpu_torch.ops import sweep
     gen = torch.Generator(device=m.device).manual_seed(seed)
     qpos = random_states(m, batch, gen)
-    a = {name: time_ms(lambda: pos._launch(m, qpos, skip=skip), queued=QUEUED)
-         for name, skip in (("whole", 0), ("no_sweeps", 1),
-                            ("no_subtree_sums", 2), ("no_tree_walk", 4),
-                            ("no_qM_assembly", 8),
-                            ("none_of_them", 15))}
-    (args, st), _ = contact_states(m, batch, gen)
+    out = dict(batch=batch)
+    if "position" in kernels:
+        out["position_ms"] = {
+            name: time_ms(lambda: pos._launch(m, qpos, skip=skip),
+                          queued=QUEUED)
+            for name, skip in (("whole", 0), ("no_sweeps", 1),
+                               ("no_subtree_sums", 2), ("no_tree_walk", 4),
+                               ("no_qM_assembly", 8), ("none_of_them", 15))}
+        out["position_resources"] = pos.resources(m)
+        out["position_route"] = pos.route_name(m)
+    if "cg" in kernels:
+        (args, st), _ = contact_states(m, batch, gen, press)
 
-    def solve(iters, ls_iters, skip=0):
-        s = cg_ops.CgStatics.make(st.nv, st.lim_dof, st.chain1, st.chain2,
-                                  iters, ls_iters)
-        return time_ms(lambda: cg_ops._launch(s, args, skip=skip),
-                       queued=QUEUED)
+        def solve(iters, ls_iters, skip=0):
+            s = cg_ops.CgStatics.make(st.nv, st.lim_dof, st.chain1,
+                                      st.chain2, iters, ls_iters)
+            return time_ms(lambda: cg_ops._launch(s, args, skip=skip),
+                           queued=QUEUED)
 
-    pair = twin_pair(m, qpos)
-    c = {name: time_ms(lambda: sweep._launch(pair, skip=skip), queued=QUEUED)
-         for name, skip in (("whole", 0), ("no_pivots", 1),
-                            ("load_store_only", 3))}
-    b = {"whole": solve(st.iters, st.ls_iters),
-         "no_line_search": solve(st.iters, 0),
-         "no_iterations": solve(0, st.ls_iters),
-         "no_jv_chains": solve(st.iters, st.ls_iters, 1),
-         "no_jtf_chains": solve(st.iters, st.ls_iters, 2),
-         "no_matvecs": solve(st.iters, st.ls_iters, 4),
-         "none_of_them": solve(st.iters, st.ls_iters, 7)}
-    return dict(batch=batch,
-                position_ms=a, position_resources=pos.resources(m),
-                cg_ms=b, cg_resources=cg_ops.resources(st, m.device),
-                cg_shape=dict(iters=st.iters, ls_iters=st.ls_iters,
-                              nv=st.nv, ncon=st.ncon, nlimit=st.nlimit),
-                sweep_ms=c,
-                sweep_resources=sweep.resources(m.nv),
-                sweep_shape=list(pair.shape))
+        out["cg_ms"] = {"whole": solve(st.iters, st.ls_iters),
+                        "no_line_search": solve(st.iters, 0),
+                        "no_iterations": solve(0, st.ls_iters),
+                        "no_jv_chains": solve(st.iters, st.ls_iters, 1),
+                        "no_jtf_chains": solve(st.iters, st.ls_iters, 2),
+                        "no_matvecs": solve(st.iters, st.ls_iters, 4),
+                        "none_of_them": solve(st.iters, st.ls_iters, 7)}
+        out["cg_resources"] = cg_ops.resources(st, m.device)
+        out["cg_shape"] = dict(iters=st.iters, ls_iters=st.ls_iters,
+                               nv=st.nv, ncon=st.ncon, nlimit=st.nlimit,
+                               route=cg_ops.kernel_name(st))
+    if "sweep" in kernels:
+        pair = twin_pair(m, qpos)
+        out["sweep_ms"] = {
+            name: time_ms(lambda: sweep._launch(pair, skip=skip),
+                          queued=QUEUED)
+            for name, skip in (("whole", 0), ("no_pivots", 1),
+                               ("load_store_only", 3))}
+        out["sweep_resources"] = sweep.resources(m.nv)
+        out["sweep_shape"] = list(pair.shape)
+    return out

@@ -98,7 +98,7 @@ def check(err: int, what: str) -> None:
 
 def resources(name: str, *args) -> dict:
     """What ``<name>_resources`` of a kernel library reports for one launch
-    shape (``args``: the model struct and the ints its launch takes):
+    shape (``args``: the structs and the ints its launch takes):
     registers per thread, local-memory bytes per thread (non-zero means a
     stack frame or spills), shared memory per block and the resident blocks
     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""

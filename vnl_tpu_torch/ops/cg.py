@@ -95,12 +95,23 @@ _IN = ("qM", "qMinv", "x0", "cdof", "g36", "lim_sign", "lim_aref", "lim_D",
 
 _TABLES = ("lim_dof", "lim_of_dof", "side_start", "side_dof", "dof_start",
            "dof_side")
+_WIDE_TABLES = ("lim_dof", "lim_of_dof", "side_start", "side_dof",
+                "dof_start", "dof_side", "grp_start", "grp_dof",
+                "grp_of_side", "chunk_start", "chunk_side", "dof_cstart",
+                "dof_chunk")
+_SIZES = ("nv", "ncon", "nlimit", "iters", "ls_iters")
 
 
 class CgModel(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int) for n in ("nv", "ncon", "nlimit", "iters",
-                                            "ls_iters")] + \
+    _fields_ = [(n, ctypes.c_int) for n in _SIZES] + \
                [(n, ctypes.c_void_p) for n in _TABLES]
+
+
+class CgWide(ctypes.Structure):
+    """The wide route's model (CgWide of the source): CgModel's fields,
+    the group and chunk counts after its sizes, the per-body tables."""
+    _fields_ = [(n, ctypes.c_int) for n in _SIZES + ("ngrp", "nchunk")] + \
+               [(n, ctypes.c_void_p) for n in _WIDE_TABLES]
 
 
 def kernel_tables(st: CgStatics) -> dict:
@@ -110,6 +121,17 @@ def kernel_tables(st: CgStatics) -> dict:
       side_start, side_dof: per side, the dofs of its chain (CSR);
       dof_start, dof_side: per dof, the sides whose chain holds it (CSR),
         ordered by contact and, within one contact, chain2 before chain1.
+    The route for wide systems groups the sides by their chain (a chain is
+    that of a body, so a group is a body that carries contacts; the empty
+    chain of the world is no group) and adds ``body_tables``:
+      grp_start, grp_dof: per group, the dofs of its chain, ascending;
+      grp_of_side (2 ncon): the group of each side, ngrp for an empty one;
+      chunk_start, chunk_side: each group's sides, ascending, cut into
+        chunks of at most ``chunk_len`` sides (one thread a chunk and
+        spatial component: chunk_len is the least that gives no more
+        chunks than THREADS / 6);
+      dof_cstart, dof_chunk: per dof, the chunks whose chain holds it,
+        ascending (the chunks of the bodies below the dof's body).
     """
     lim_of_dof = np.full(st.nv, -1, np.int32)
     lim_of_dof[st.lim_dof] = np.arange(st.nlimit)
@@ -124,7 +146,58 @@ def kernel_tables(st: CgStatics) -> dict:
     d, c, sd = np.nonzero(by_contact)
     return dict(lim_dof=st.lim_dof, lim_of_dof=lim_of_dof,
                 side_start=side_start, side_dof=side_dof,
-                dof_start=dof_start, dof_side=sd * st.ncon + c)
+                dof_start=dof_start, dof_side=sd * st.ncon + c,
+                **body_tables(sides))
+
+
+def _csr(lists):
+    start = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+    flat = np.concatenate([np.asarray(x, np.int64) for x in lists]) \
+        if lists else np.zeros(0, np.int64)
+    return start, flat
+
+
+def body_tables(sides: np.ndarray) -> dict:
+    """The per-body tables of kernel B's wide route (see kernel_tables)
+    from the (2 ncon, nv) 0/1 chain masks of the sides."""
+    nside, nv = sides.shape
+    chains, grp_of_side = [], np.zeros(nside, np.int64)
+    index = {}
+    for sc in range(nside):
+        key = np.flatnonzero(sides[sc]).tobytes()
+        if not sides[sc].any():
+            grp_of_side[sc] = -1
+            continue
+        if key not in index:
+            index[key] = len(chains)
+            chains.append(np.flatnonzero(sides[sc]))
+        grp_of_side[sc] = index[key]
+    ngrp = len(chains)
+    grp_of_side[grp_of_side < 0] = ngrp
+    members = [np.flatnonzero(grp_of_side == g) for g in range(ngrp)]
+    counts = [len(x) for x in members]
+    chunk_len = 1
+    while sum(-(-n // chunk_len) for n in counts) * 6 > THREADS and \
+            chunk_len < max(counts, default=1):
+        chunk_len += 1
+    chunks, chunk_grp = [], []
+    for g, own in enumerate(members):
+        for i in range(0, len(own), chunk_len):
+            chunks.append(own[i:i + chunk_len])
+            chunk_grp.append(g)
+    grp_mask = np.zeros((ngrp, nv), bool)
+    for g, dofs in enumerate(chains):
+        grp_mask[g, dofs] = True
+    chunk_grp = np.asarray(chunk_grp, np.int64)
+    dof_chunks = [np.flatnonzero(grp_mask[chunk_grp, d]) if len(chunk_grp)
+                  else np.zeros(0, np.int64) for d in range(nv)]
+    grp_start, grp_dof = _csr(chains)
+    chunk_start, chunk_side = _csr(chunks)
+    dof_cstart, dof_chunk = _csr(dof_chunks)
+    return dict(grp_start=grp_start, grp_dof=grp_dof,
+                grp_of_side=grp_of_side, chunk_start=chunk_start,
+                chunk_side=chunk_side, dof_cstart=dof_cstart,
+                dof_chunk=dof_chunk, chunk_len=chunk_len)
 
 
 class CgIn(ctypes.Structure):
@@ -135,37 +208,55 @@ class CgOut(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("qacc", "qfrc", "con_f")]
 
 
-def _device_model(st: CgStatics, device: torch.device) -> CgModel:
+def _device_model(st: CgStatics, device: torch.device):
+    """(CgModel, CgWide) with the tables on ``device``, made once."""
     key = str(device)
     if key not in st.cache:
-        held = {n: torch.as_tensor(np.asarray(a, np.int32), device=device)
-                for n, a in kernel_tables(st).items()}
-        st.cache[key] = (CgModel(st.nv, st.ncon, st.nlimit, st.iters,
-                                 st.ls_iters,
-                                 *[held[n].data_ptr() for n in _TABLES]),
-                         held)
-    return st.cache[key][0]
+        t = kernel_tables(st)
+        held = {n: torch.as_tensor(np.asarray(t[n], np.int32), device=device)
+                for n in dict.fromkeys(_TABLES + _WIDE_TABLES)}
+        sizes = [getattr(st, n) for n in _SIZES]
+        st.cache[key] = (
+            CgModel(*sizes, *[held[n].data_ptr() for n in _TABLES]),
+            CgWide(*sizes, len(t["grp_start"]) - 1,
+                   len(t["chunk_start"]) - 1,
+                   *[held[n].data_ptr() for n in _WIDE_TABLES]),
+            held)
+    return st.cache[key][:2]
+
+
+WIDE_SLOTS = (1, 2, 3, 4)   # contact-row slots a thread of the wide route
+                            # holds (cg_wide_kernel<NCS, 1> instantiations)
 
 
 def kernel_name(st: CgStatics) -> str:
-    """The instantiation of kernel B that runs this system (pick_kernel of
-    the source): the line search in registers, one warp, for up to 160
-    constraint rows; in shared memory above."""
-    return ("cg_kernel<5>" if st.nlimit + 4 * st.ncon <= 32 * 5
-            else "cg_kernel<0>")
+    """The route of kernel B that runs this system (pick_kernel of the
+    source): up to 160 constraint rows, the line search on one warp with 5
+    rows a lane in registers (the twin's route); up to 1,024 contact rows
+    and 256 limit rows, the wide route, every row in a register of one of
+    the block's 256 threads; wider, the line search from shared memory."""
+    rows = st.nlimit + 4 * st.ncon
+    if rows <= 32 * 5:
+        return "cg_kernel<5>"
+    slots = -(-4 * st.ncon // THREADS)
+    if slots <= max(WIDE_SLOTS) and st.nlimit <= THREADS:
+        return f"cg_wide_kernel<{slots},1>"
+    return "cg_kernel<0>"
 
 
 def resources(st: CgStatics, device="cuda") -> dict:
     """Registers per thread, local (spill) bytes, shared memory per block
     and resident blocks per SM of kernel B for this constraint system."""
-    return dict(build.resources("cg", _device_model(st, torch.device(device))),
-                threads=THREADS)
+    return dict(build.resources("cg", *_device_model(st,
+                                                     torch.device(device))),
+                threads=THREADS, route=kernel_name(st))
 
 
 def _launch(st: CgStatics, args, skip: int = 0):
     """Launches kernel B.  ``skip`` is for profiling only (the outputs are
-    then wrong): bit 0 empties the chain lists of J v, bit 1 those of
-    J^T f, bit 2 leaves out the matvecs' inner loops."""
+    then wrong): bit 0 empties the chain lists of J v (the groups' on the
+    wide route), bit 1 those of J^T f (the chunks' and the dofs' chunk
+    lists), bit 2 leaves out the matvecs' inner loops."""
     B = args[0].shape[0]
     nv, nc, nl = st.nv, st.ncon, st.nlimit
     shapes = [(nv, nv), (nv, nv), (nv,), (nv, 6), (36, nc), (nl,), (nl,),
@@ -185,14 +276,14 @@ def _launch(st: CgStatics, args, skip: int = 0):
                          f"{THREADS} and keeps a warp free: nv = {nv}")
     lib = build.load("cg")
     fn = lib.cg_launch
-    fn.argtypes = [CgModel, CgIn, CgOut, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int]
+    fn.argtypes = [CgModel, CgWide, CgIn, CgOut, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     qacc = torch.empty(B, nv, device=dev)
     qfrc = torch.empty(B, nv, device=dev)
     con_f = torch.empty(B, nc, 4, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_device_model(st, dev), CgIn(*[a.data_ptr() for a in args]),
+    err = fn(*_device_model(st, dev), CgIn(*[a.data_ptr() for a in args]),
              CgOut(qacc.data_ptr(), qfrc.data_ptr(), con_f.data_ptr()), B,
              stream, skip)
     build.check(err, "kernel B (cg)")

@@ -24,9 +24,12 @@ from vnl_tpu_torch.physics.model import Model
 WARPS = 8           # warps that sweep one matrix (kWarps of the source; one
                     # block per env, two matrices when damped)
 # (TR, TC) register tiles the kernel source instantiates: thread
-# (warp, lane) of a matrix owns its rows warp + i * WARPS, i < TR, and its
-# columns lane + 32 * j, j < TC.
-TILE_SHAPES = ((1, 1), (10, 3), (12, 3))
+# (warp, lane) of a matrix owns its rows warp + i * W, i < TR, and its
+# columns lane + 32 * j, j < TC, where W is the number of warps that sweep
+# one matrix: 1 for the one-warp route (TC = 1, nv <= TR <= 32: lane s
+# holds column s), WARPS for the others.
+WARP_TILES = ((16, 1), (32, 1))
+TILE_SHAPES = WARP_TILES + ((10, 3), (12, 3))
 OUTPUT_NAMES = ("xpos", "xquat", "xmat", "xipos", "xanchor", "xaxis",
                 "geom_xpos", "geom_xmat", "subtree_com", "cinert", "cdof",
                 "qM", "qMinv", "qMhBinv")
@@ -82,22 +85,37 @@ class PosOut(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in OUTPUT_NAMES]
 
 
+def tile_warps(tr: int, tc: int) -> int:
+    """Warps that sweep one matrix with the tile (TR, TC)."""
+    return 1 if (tr, tc) in WARP_TILES else WARPS
+
+
 def tile_shape(nv: int):
-    """The smallest instantiated (TR, TC) tile that covers an nv x nv
-    matrix; ValueError where none does."""
+    """The first instantiated (TR, TC) tile that covers an nv x nv matrix
+    (the one-warp route up to nv 32); ValueError where none does."""
     for tr, tc in TILE_SHAPES:
-        if WARPS * tr >= nv and 32 * tc >= nv:
+        if tile_warps(tr, tc) * tr >= nv and 32 * tc >= nv:
             return tr, tc
     raise ValueError(f"kernel A has no register tile for nv = {nv} "
-                     f"(instantiated for {WARPS} warps: {TILE_SHAPES})")
+                     f"(instantiated: {TILE_SHAPES})")
+
+
+def route_name(m: Model) -> str:
+    """The instantiation of kernel A that runs this model."""
+    tr, tc = tile_shape(m.nv)
+    nmat = 2 if inertia.needs_implicit_damping(m) else 1
+    if (tr, tc) in WARP_TILES:
+        return f"position_warp_kernel<{tr},{nmat}>"
+    return f"position_kernel<{WARPS},{tr},{tc},{nmat}>"
 
 
 def tile_map(nv: int, tr: int, tc: int) -> np.ndarray:
     """(threads, TR * TC, 2) int array: the (row, column) of every tile
-    slot of every thread of the WARPS warps that sweep one matrix, -1
-    where the slot lies outside the matrix."""
-    tid = np.arange(WARPS * 32)
-    r = (tid // 32)[:, None, None] + WARPS * np.arange(tr)[None, :, None]
+    slot of every thread of the warps that sweep one matrix, -1 where the
+    slot lies outside the matrix."""
+    warps = tile_warps(tr, tc)
+    tid = np.arange(warps * 32)
+    r = (tid // 32)[:, None, None] + warps * np.arange(tr)[None, :, None]
     s = (tid % 32)[:, None, None] + 32 * np.arange(tc)[None, None, :]
     r, s = np.broadcast_arrays(r, s)
     rs = np.stack([r, s], -1).reshape(len(tid), tr * tc, 2)
@@ -177,7 +195,8 @@ def resources(m: Model) -> dict:
     tr, tc = tile_shape(m.nv)
     nmat = 2 if inertia.needs_implicit_damping(m) else 1
     return dict(build.resources("position", _device_model(m, m.device),
-                                tr, tc), threads=32 * WARPS * nmat)
+                                tr, tc),
+                threads=32 * tile_warps(tr, tc) * nmat, route=route_name(m))
 
 
 def _launch(m: Model, qpos: torch.Tensor, skip: int = 0):

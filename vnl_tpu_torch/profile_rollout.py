@@ -15,6 +15,9 @@ blocks), after the compiler's own resource report.
 
 Usage (from the repo root, on the machine with the card):
   python3 -m vnl_tpu_torch.profile_rollout [--stages-only]
+  python3 -m vnl_tpu_torch.profile_rollout --scene humanoid|ant
+(--scene: the stage split of the kernels that scene runs, at its shapes,
+and stop)
 """
 
 from __future__ import annotations
@@ -58,6 +61,10 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--stages-only", action="store_true",
                    help="print the kernels' stage split and stop")
+    p.add_argument("--scene", default="twin",
+                   choices=("twin", "humanoid", "ant"),
+                   help="humanoid, ant: only the stage split of the kernels "
+                        "that scene runs (A and B; A)")
     args = p.parse_args()
 
     from vnl_tpu_torch import compat, kernel_bench
@@ -74,11 +81,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[nvcc {name}] {line.strip()}")
     forward.pin_fp32()
-    stages = kernel_bench.stage_split(
-        compat.model_from_numpy(compat.TWIN_MODEL, device="cuda"), BATCH)
+    if args.scene == "twin":
+        stages = kernel_bench.stage_split(
+            compat.model_from_numpy(compat.TWIN_MODEL, device="cuda"), BATCH)
+    else:
+        m, kw = kernel_bench.scene(args.scene)
+        stages = kernel_bench.stage_split(m, BATCH, **kw)
     print(json.dumps({"kernel_stages": dict(
-        stages, card=gpu_name_and_power_limit())}), flush=True)
-    if args.stages_only:
+        stages, scene=args.scene, card=gpu_name_and_power_limit())}),
+        flush=True)
+    if args.stages_only or args.scene != "twin":
         return 0
 
     env = make_twin_env(device="cuda")
