@@ -89,8 +89,7 @@ Phases, in order; any failure exits non-zero:
      the CPU (within 1e-4 on 99.5% of the pixels); ms per overlay frame
      (card, CPU), ms per camera call, peak memory; and every render job
      the command lines of phases 7-8 started (render_eval: true) must end
-     in a video path, or in a render-error caused by nothing but the
-     missing imageio module;
+     in a video file (a .gif where imageio is missing);
  11. data parallelism: train(...) at 1024 envs, the fused stage, one
      training step at the bench's hyperparameters, first without a process
      group, then with num_devices=1 under a one-rank NCCL group, where the
@@ -100,7 +99,22 @@ Phases, in order; any failure exits non-zero:
      all-reduces per SGD update and their device time; then the command
      line through `python -m torch.distributed.run --nproc_per_node=1 -m
      vnl_tpu_torch.train` at the twin config's sizes for one interval,
-     which must exit with 0.
+     which must exit with 0;
+ 12. the checkpoint tools and the examples on phase 7's first run:
+     vnl_tpu_torch.eval_checkpoint.evaluate (the deterministic policy, 16
+     envs over the whole clip, 245 control steps) on its last params file
+     and on its last state file, which must give the same rewards and
+     lengths bit for bit, all finite, every length in [1, 245], with A and
+     B at least 5 x 245 launches each and C none (a {"eval_checkpoint":
+     ...} line each); vnl_tpu_torch.render_checkpoint.render on the params
+     file with a synthetic skin around the twin (write_twin_skin: a hull
+     of 640 faces on 3 bones), which must write the diag PNG and the video
+     (a .gif without imageio's mp4 backend); the first 8 skinned overlay
+     frames of phase 7's first eval-callback episode on the card against
+     the CPU's (phase 10's rule), with ms per frame on both and the peak
+     memory; vnl_tpu_torch.examples.train_multiclip at its own sizes (32
+     envs, two clips of 125 frames) for one training step, with finite
+     losses and both clips drawn; a {"checkpoint_tools": ...} line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
 twin's A, B and C; A and B at the humanoid's shapes; A and C at the ant's)
@@ -959,14 +973,13 @@ def phase_render(device):
     from vnl_tpu_torch.render.software import overlay_frames
     t_phase = time.perf_counter()
     rep = {}
-    # every render job of the command lines: a video, or no imageio
+    # every render job of the command lines: a video (a .gif written by
+    # utils/images.py where imageio is missing)
     jobs = []
     for cb in CALLBACKS:
         res = cb.render_result(timeout=600)
         jobs.append(res)
-        ok = res is not None and (
-            os.path.exists(res) or
-            res == "render-error: No module named 'imageio'")
+        ok = res is not None and os.path.exists(res)
         if not ok:
             raise AssertionError(f"eval-callback render job: {res!r}")
     rep["render_jobs"] = jobs
@@ -1171,6 +1184,221 @@ def phase_data_parallel(device):
     return add_counts(c_plain, c_dp), rep
 
 
+SKIN_BONES = ("pelvis", "torso", "skull")
+
+
+def write_twin_skin(path, m, rings=16, seg=20, seed=0):
+    """A synthetic MuJoCo binary skin (.skn) around the twin's spine, built
+    as tests/test_torch_render.py write_skn builds one around its scene's
+    arm: a closed ellipsoidal hull (rings x seg vertices and two poles,
+    jittered from a seed), 3 bones named after the twin's pelvis, torso
+    and skull, bound at their qpos0 poses (the port's host FK), weights
+    blended by the distance along the spine, 2 texcoords a vertex (skipped
+    by the parser).  Returns (vertices, faces)."""
+    import struct
+    from vnl_tpu_torch.render.software import numpy_fk
+    rng = np.random.default_rng(seed)
+    verts = [(0.0, 0.0, 1.0)]
+    for i in range(1, rings + 1):
+        th = np.pi * i / (rings + 1)
+        for j in range(seg):
+            ph = 2 * np.pi * j / seg
+            verts.append((np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                          np.cos(th)))
+    verts.append((0.0, 0.0, -1.0))
+    verts = np.asarray(verts) * np.array([0.022, 0.025, 0.075])
+    verts = verts[:, [2, 1, 0]] + np.array([-0.005, 0.0, 0.07])
+    verts += 0.001 * rng.normal(size=verts.shape)
+    nv = len(verts)
+    faces = [(0, 1 + j, 1 + (j + 1) % seg) for j in range(seg)]
+    for i in range(rings - 1):
+        a, b = 1 + i * seg, 1 + (i + 1) * seg
+        for j in range(seg):
+            k = (j + 1) % seg
+            faces += [(a + j, b + j, b + k), (a + j, b + k, a + k)]
+    last = 1 + (rings - 1) * seg
+    faces += [(nv - 1, last + (j + 1) % seg, last + j) for j in range(seg)]
+    xpos, xquat, _, _ = numpy_fk(m, m.qpos0.cpu().numpy())
+    names = list(m.body_names)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4i", nv, nv, len(faces), len(SKIN_BONES)))
+        f.write(np.asarray(verts, "<f4").tobytes())
+        f.write(rng.uniform(size=(nv, 2)).astype("<f4").tobytes())
+        f.write(np.asarray(faces, "<i4").tobytes())
+        for name in SKIN_BONES:
+            bid = names.index(name)
+            w = np.exp(-((verts[:, 0] - xpos[bid, 0]) / 0.03) ** 2)
+            vid = np.nonzero(w > 0.05)[0]
+            f.write(name.encode().ljust(40, b"\0"))
+            f.write(struct.pack("<3f", *xpos[bid]))
+            f.write(struct.pack("<4f", *xquat[bid]))
+            f.write(struct.pack("<i", len(vid)))
+            f.write(vid.astype("<i4").tobytes())
+            f.write(w[vid].astype("<f4").tobytes())
+    return nv, len(faces)
+
+
+EVAL_ENVS, CLIP_HORIZON = 16, 245     # the twin clip: 250 - 5 frames
+SKIN_FRAMES = 8
+
+
+def phase_checkpoint_tools(device):
+    """Phase 12; returns (report, launch counts of its runs)."""
+    import glob
+    from vnl_tpu_torch import compat, eval_checkpoint, render_checkpoint
+    from vnl_tpu_torch.envs import RodentMultiClipTracking
+    from vnl_tpu_torch.examples import train_multiclip
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from vnl_tpu_torch.render.software import overlay_frames
+    from vnl_tpu_torch.utils import apply_overrides, load_config
+    t_phase = time.perf_counter()
+    rep, all_counts = {}, []
+    (run,) = glob.glob(os.path.join(CLI_DIR, "train", "ck", "*"))
+    steps = max(int(n[:-4]) for n in os.listdir(run)
+                if n.endswith(".npz") and n[:-4].isdigit())
+    params = os.path.join(run, f"{steps}.npz")
+    state = os.path.join(run, "state", f"{steps}.npz")
+    cfg = apply_overrides(load_config(eval_checkpoint.TWIN_CONFIG), [
+        f"env.clip_path={compat.TWIN_CLIP}",
+        f"env.env_args.mjcf_path={TWIN_XML}"])
+
+    # 1. the deterministic evaluation from the params file and the state
+    results = {}
+    for tag, path in (("params", params), ("state", state)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = eval_checkpoint.evaluate(path, EVAL_ENVS, cfg, device)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        all_counts.append(counts)
+        rec = eval_checkpoint.report(res, os.path.relpath(path, ROOT),
+                                     device)
+        print(json.dumps({"eval_checkpoint": rec}), flush=True)
+        rew, lengths = res["rewards"], res["lengths"]
+        if res["horizon"] != CLIP_HORIZON or rew.shape != (EVAL_ENVS,) or \
+                not np.isfinite(rew).all() or lengths.min() < 1 or \
+                lengths.max() > CLIP_HORIZON:
+            raise AssertionError(f"eval_checkpoint {tag}: horizon "
+                                 f"{res['horizon']}, rewards {rew}, "
+                                 f"lengths {lengths}")
+        need = 5 * CLIP_HORIZON
+        if counts.get("position", 0) < need or counts.get("cg", 0) < need \
+                or counts.get("sweep", 0):
+            raise AssertionError(f"eval_checkpoint {tag}: launches {counts}"
+                                 f", A and B need {need} each, C none")
+        results[tag] = res
+        rep[f"eval_{tag}"] = dict(seconds=res["seconds"],
+                                  load_s=res["load_s"], launches=counts,
+                                  reward_mean=rec["reward_mean"],
+                                  length_mean=rec["length_mean"])
+    for key in ("rewards", "lengths"):
+        a, b = results["params"][key], results["state"][key]
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"eval_checkpoint: {key} of the params "
+                                 "file and of the state file differ")
+    if results["state"]["env_steps"] != steps:
+        raise AssertionError(f"state file at {results['state']['env_steps']}")
+
+    # 2. render_checkpoint with a synthetic skin around the twin
+    m_cpu = compat.model_from_numpy(compat.TWIN_MODEL, device="cpu")
+    skin = os.path.join(CLI_DIR, "twin_hull.skn")
+    rep["skin_verts"], rep["skin_faces"] = write_twin_skin(skin, m_cpu)
+    out_prefix = os.path.join(CLI_DIR, "render_checkpoint", "rollout")
+    os.makedirs(os.path.dirname(out_prefix), exist_ok=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = render_checkpoint.render(params, out_prefix, cfg, device,
+                                   skin=skin)
+    torch.cuda.synchronize()
+    all_counts.append(dict(launch_counts))
+    n = len(out["traj"]["reward"])
+    if not (os.path.getsize(out["diag"]) > 0 and
+            os.path.getsize(out["video"]) > 0 and
+            out["video"].endswith((".mp4", ".gif"))) or \
+            tuple(out["frames"].shape) != (n, 240, 320, 3):
+        raise AssertionError(f"render_checkpoint wrote {out['diag']}, "
+                             f"{out['video']}, frames "
+                             f"{tuple(out['frames'].shape)}")
+    rep["render"] = dict(steps=n, video=os.path.basename(out["video"]),
+                         rollout_s=out["rollout_s"],
+                         render_s=out["render_s"],
+                         ms_per_frame=1e3 * out["render_s"] / n)
+    # the first skinned overlay frames of phase 7's first eval-callback
+    # episode (30 steps) on the card, timed after a warm-up, and on the CPU
+    cb = CALLBACKS[0]
+    traj = cb.last_traj
+    qa, qr = cb.overlay_inputs(traj["qpos"], traj["start_frame"],
+                               traj["clip_id"])
+    qa, qr = qa[:SKIN_FRAMES], qr[:SKIN_FRAMES]
+    model = cb._env.sys
+    overlay_frames(model, qa, qr, skin=skin, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    frames = overlay_frames(model, qa, qr, skin=skin, device=device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    t0 = time.perf_counter()
+    cpu = overlay_frames(m_cpu, qa, qr, skin=skin, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    plain = overlay_frames(m_cpu, qa, qr, skin=None, device="cpu")
+    share = frames_off_share(frames.cpu(), cpu)
+    if frames.shape != (SKIN_FRAMES, 240, 320, 3) or share > PIXEL_SHARE:
+        raise AssertionError(f"skinned overlay {tuple(frames.shape)}: "
+                             f"{share:.4%} of the pixels differ from the "
+                             "CPU's frames")
+    hide = float((cpu != plain).any(-1).float().mean())
+    if hide < 0.002:
+        raise AssertionError("the skin does not show in the overlay")
+    rep["skinned_overlay"] = dict(
+        frames=SKIN_FRAMES, off_share=share, skin_pixel_share=hide,
+        ms_per_frame=1e3 * card_s / SKIN_FRAMES,
+        cpu_ms_per_frame=1e3 * cpu_s / SKIN_FRAMES, peak_mb=peak)
+
+    # 3. the multi-clip example at its own sizes, one training step
+    drawn = []
+    extra_info = RodentMultiClipTracking._extra_reset_info
+
+    def record_draws(self, *a, **kw):
+        got = extra_info(self, *a, **kw)
+        drawn.append(got["clip_id"].cpu())
+        return got
+
+    kw = train_multiclip.TRAIN_KW
+    per_step = kw["batch_size"] * kw["num_minibatches"] * kw["unroll_length"]
+    RodentMultiClipTracking._extra_reset_info = record_draws
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        _, _, metrics = train_multiclip.main(per_step, device)
+    finally:
+        RodentMultiClipTracking._extra_reset_info = extra_info
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    all_counts.append(counts)
+    losses = {k: v for k, v in metrics.items() if k.startswith("training/")
+              and "loss" in k}
+    draws = np.bincount(torch.cat(drawn).numpy(), minlength=2)
+    if not losses or not all(np.isfinite(v) for v in losses.values()) or \
+            len(draws) != 2 or draws.min() < 1:
+        raise AssertionError(f"train_multiclip: losses {losses}, clip "
+                             f"draws {draws}")
+    # control steps: the training step's unrolls, two 50-step evaluations
+    control = per_step // kw["num_envs"] + 2 * kw["episode_length"]
+    check_cli_launches("train_multiclip", counts, 5 * control)
+    rep["train_multiclip"] = dict(
+        seconds=time.perf_counter() - t0, env_steps=per_step,
+        env_steps_per_s=metrics["training/sps"],
+        total_loss=losses["training/total_loss"],
+        clip_draws=draws.tolist(), launches=counts)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"checkpoint_tools": rep}), flush=True)
+    return rep, add_counts(*all_counts)
+
+
 def compare_trees(old: str) -> dict:
     """tools/compare_kernels.py --old ``old``: {key: {"old": ms, "new":
     ms}} of both trees' kernels, timed in turns."""
@@ -1229,12 +1457,13 @@ def main() -> int:
     rows_ant, counts_ant, info["ant"], errs_ant = phase_ant(device, trees)
     info["render"] = phase_render(device)
     counts_dp, info["data_parallel"] = phase_data_parallel(device)
+    info["checkpoint_tools"], counts_tools = phase_checkpoint_tools(device)
     twin_counts = add_counts(counts, counts_fused, counts_unfused,
-                             *counts_cli, counts_dp)
+                             *counts_cli, counts_dp, counts_tools)
     kernels = [row_a, row_b, row_c] + rows_h + rows_ant
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
-        # phases 4, 6, 7, 11; the humanoid's: 8; the ant's: 9), each path
+        # phases 4, 6, 7, 11, 12; the humanoid's: 8; the ant's: 9), each path
         # counted from zero on its own
         paths = (counts_h if row["name"].endswith("humanoid") else
                  counts_ant if "ant" in row["name"] else twin_counts)

@@ -669,21 +669,33 @@ def overlay_frames(model: Model, qpos_rollout: np.ndarray,
         torch.as_tensor(np.stack([qa[:n], qr[:n]], 1).astype(np.float64)))
 
 
+def write_video(frames: np.ndarray, out_path: str, fps: int = 50) -> str:
+    """Writes (T, H, W, 3) uint8 frames with imageio; without its mp4
+    backend, a .gif beside ``out_path``, as the JAX package does; without
+    imageio itself, that .gif by ``utils.images.write_gif`` (3-3-2
+    colours).  Returns the path written."""
+    gif = out_path.rsplit(".", 1)[0] + ".gif"
+    try:
+        import imageio
+    except ImportError:
+        from vnl_tpu_torch.utils.images import write_gif
+        return write_gif(gif, frames, fps)
+    try:
+        imageio.mimsave(out_path, list(frames), fps=fps)
+    except (ValueError, ImportError):
+        # no ffmpeg backend in this environment: degrade to GIF
+        imageio.mimsave(gif, list(frames), duration=1.0 / fps)
+        out_path = gif
+    return out_path
+
+
 def render_overlay_video(model: Model, qpos_rollout: np.ndarray,
                          qpos_ref: np.ndarray, out_path: str,
                          fps: int = 50, width=320, height=240,
                          skin="auto", device=None) -> str:
-    """Agent vs reference ghost overlay video (:func:`overlay_frames`).
-    skin: optional render.skin.Skin, or a path to a .skn file.  Writes
-    with imageio (imported first, as the JAX package does); without its
-    mp4 backend, a .gif beside ``out_path``.  Returns the path written."""
-    import imageio
-    frames = list(overlay_frames(model, qpos_rollout, qpos_ref, width,
-                                 height, skin, device).cpu().numpy())
-    try:
-        imageio.mimsave(out_path, frames, fps=fps)
-    except (ValueError, ImportError):
-        # no ffmpeg backend in this environment: degrade to GIF
-        out_path = out_path.rsplit(".", 1)[0] + ".gif"
-        imageio.mimsave(out_path, frames, duration=1.0 / fps)
-    return out_path
+    """Agent vs reference ghost overlay video (:func:`overlay_frames`,
+    :func:`write_video`).  skin: optional render.skin.Skin, or a path to a
+    .skn file.  Returns the path written."""
+    frames = overlay_frames(model, qpos_rollout, qpos_ref, width, height,
+                            skin, device).cpu().numpy()
+    return write_video(frames, out_path, fps)

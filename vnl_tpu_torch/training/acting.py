@@ -4,6 +4,7 @@ features in state.info["traj"] beside the proprioceptive observation."""
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -75,18 +76,29 @@ class Evaluator:
         self._policy = eval_policy
         self._steps = episode_length // action_repeat
 
-    def _run_episodes(self) -> State:
+    def _run_episodes(self, noise: Dict) -> State:
         state = self._env.reset(self._num_eval_envs,
-                                generator=self._generator)
-        for _ in range(self._steps):
-            state, _ = actor_step(self._env, state, self._policy,
-                                  self._generator)
+                                generator=self._generator,
+                                start_frame=noise.get("start_frame"),
+                                noise=noise.get("reset"))
+        for t in range(self._steps):
+            policy = self._policy if "latent" not in noise else \
+                functools.partial(self._policy,
+                                  latent_noise=noise["latent"][t])
+            state, _ = actor_step(self._env, state, policy, self._generator)
         return state
 
     def run_evaluation(self, training_metrics: Dict,
-                       aggregate_episodes: bool = True) -> Dict:
+                       aggregate_episodes: bool = True,
+                       noise: Optional[Dict] = None) -> Dict:
+        """One evaluation.  ``noise`` may fix the draws, as
+        EvalCallback.rollout takes them: ``start_frame`` (B,) and
+        ``reset`` (B, nq) for the reset, and ``latent`` (B, latent) for
+        each step; the rest come from the generator.  Without
+        ``aggregate_episodes`` every metric is per episode, and so are the
+        lengths, ``eval/episode_length``."""
         start = time.time()
-        state = self._run_episodes()
+        state = self._run_episodes(noise or {})
         tallies = state.info["eval_metrics"]
         names = list(tallies.episode_metrics)
         # one readback: the metric sums and the episode lengths together
@@ -102,6 +114,8 @@ class Evaluator:
                 out[f"eval/episode_{name}_std"] = np.std(per_episode)
             else:
                 out[f"eval/episode_{name}"] = per_episode
+        if not aggregate_episodes:
+            out["eval/episode_length"] = packed[-1]
         out["eval/avg_episode_length"] = float(np.mean(packed[-1]))
         # multi-clip envs: per-clip episode reward (clip_id is stable per
         # episode: the AutoReset info snapshot restores it)

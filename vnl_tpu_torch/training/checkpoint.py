@@ -109,3 +109,20 @@ def save_params(path: str, params: Tuple) -> str:
 def load_params(path: str, device="cuda"):
     """The IntentionPolicy saved by :func:`save_params`, on ``device``."""
     return compat.policy_from_numpy(_params_path(path), device=device)
+
+
+def load_policy(path: str, device="cuda"):
+    """The IntentionPolicy of a params file (:func:`save_params`) or of a
+    full-state checkpoint (:func:`save`, or a JAX one flattened by the
+    exporter), read through :func:`restore`, with the checkpoint's
+    normaliser as the policy's; returns (policy, env_steps), env_steps
+    None for a params file."""
+    with np.load(path) as z:
+        is_state = "env_steps" in z.files
+    if not is_state:
+        return load_params(path, device=device), None
+    ts = restore(path, device=device)
+    state = dict(ts.params["policy"], obs_mean=ts.normalizer_params.mean,
+                 obs_std=ts.normalizer_params.std)
+    return compat.policy_from_numpy(compat.policy_state_to_numpy(state),
+                                    device=device), int(ts.env_steps)

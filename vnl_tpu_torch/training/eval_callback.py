@@ -62,15 +62,17 @@ class EvalCallback:
                 self._render_stream = torch.cuda.Stream(device)
 
     def rollout(self, policy, generator: Optional[torch.Generator] = None,
-                noise: Optional[Dict[str, Sequence[torch.Tensor]]] = None
-                ) -> Dict[str, np.ndarray]:
+                noise: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
+                stop_at_done: bool = False) -> Dict[str, np.ndarray]:
         """One episode of one env with ``policy`` (an IntentionPolicy).
         ``noise`` may fix the draws: ``start_frame`` (1,) and ``reset``
         (1, nq) for the reset, and per step ``latent`` (1, latent),
         ``action`` (1, nu) and ``uniform`` (1, nu); the rest come from
-        ``generator``.  Returns (T, ...) numpy series, and the episode's
-        ``start_frame`` and ``clip_id`` (-1 for a single-clip env) as
-        ints."""
+        ``generator``.  With ``stop_at_done`` the episode ends after the
+        step that sets ``done`` (one readback a step), else it runs
+        ``episode_length`` steps.  Returns (T, ...) numpy series, and the
+        episode's ``start_frame`` and ``clip_id`` (-1 for a single-clip
+        env) as ints."""
         noise = noise or {}
         make = make_inference_fn(policy)
         det_policy, stoch_policy = make(deterministic=True), make()
@@ -100,6 +102,8 @@ class EvalCallback:
             out["action"].append(act[0])
             out["log_prob"].append(extras["log_prob"][0])
             out["rand_log_prob"].append(extras["rand_log_prob"][0])
+            if stop_at_done and bool(state.done[0]):
+                break
         return dict({k: torch.stack(v).cpu().numpy() for k, v in out.items()},
                     start_frame=start_frame, clip_id=clip_id)
 
