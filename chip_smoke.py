@@ -12,6 +12,10 @@ Phases, in order; any failure exits non-zero:
      against the plain version in float32; an env that misses it, at most
      0.5% of a batch, must meet the plain version run in float64 at the
      same tolerance), and two launches against each other, bit for bit;
+     then the widest route, cg_kernel<0>, on 1024 twin contact systems
+     padded with 240 inactive contacts (1,052 contact rows; no scene of
+     the repo has that many, so no path launches it) by check_cg, with a
+     row of its own;
   4. the slice: RodentTracking (twin + clip) reset for 1024 envs and a
      20-control-step generate_unroll (100 physics substeps) with the keeper
      policy, sampling from a seeded generator; A and B must each launch at
@@ -20,10 +24,13 @@ Phases, in order; any failure exits non-zero:
      (2, 1024, 73, 73) stack [qM, qM + h diag(B)] of 1024 twin states
      (the register route, tile (10, 3), which must not spill) and on SPD
      batches of 3 and 12 matrices (the JAX package's sweep-test inputs)
-     for every other tile the repo's scenes use (n = 7, 29, 64, 96) and for
-     the shared-memory route (n = 97, 120), bitwise symmetric and the same
-     bits from two launches; prints C's route, tile, registers, spills,
-     blocks per SM, time, its bound and torch.linalg.inv's time;
+     for the one-warp route (n = 7, 14, 16, 27, 29, 32: the small scenes,
+     the ant, the humanoid and both ends of its two instantiations), for
+     the other register tiles (n = 64, 96) and for the shared-memory route
+     (n = 97, 120), bitwise symmetric and the same bits from two launches;
+     prints each n's route, registers and spills (the one-warp route must
+     not spill) and C's route, tile, registers, spills, blocks per SM,
+     time, its bound and torch.linalg.inv's time at the twin's pair;
   6. training at full width: train(...) with the arguments of
      vnl_tpu_torch/bench.py (1024 envs, networks (1024, 1024), a shortened
      episode) for four training steps with the fused position stage
@@ -74,8 +81,10 @@ Phases, in order; any failure exits non-zero:
      line with its stage split (with --old, both trees' times); kernel C
      against its plain
      version on the 1024 Hessians of the first Newton iteration at ant
-     contact states (n 14, rtol 5e-3, bitwise symmetric, two launches
-     the same bits), with torch.linalg.inv's time; AntTracking (Newton,
+     contact states (n 14: the one-warp route sweep_warp_kernel<16>, no
+     spills; rtol 5e-3, bitwise symmetric, two launches the same bits),
+     with torch.linalg.inv's time (with --old, both trees' times in
+     turns); AntTracking (Newton,
      RK4) reset for 1024 envs and driven 20 control steps as in 8: A at
      least 4 x 5 x 20 launches, C at least once per forward pass (as
      often as A), B never; then train(...) at 1024 envs, networks (1024,
@@ -114,12 +123,19 @@ Phases, in order; any failure exits non-zero:
      the CPU's (phase 10's rule), with ms per frame on both and the peak
      memory; vnl_tpu_torch.examples.train_multiclip at its own sizes (32
      envs, two clips of 125 frames) for one training step, with finite
-     losses and both clips drawn; a {"checkpoint_tools": ...} line.
+     losses and both clips drawn; a {"checkpoint_tools": ...} line;
+ 13. the stepping bench: vnl_tpu_torch.bench.run_stepping (the twin env
+     stepped raw with random actions, no policy) at 1024 envs, 20 control
+     steps a sample, 2 warm-up calls and 3 samples; A and B at least 100
+     launches each in every sample, every qpos, qvel and reward finite;
+     its JSON line ({"stepping": ...}).
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
-twin's A, B and C; A and B at the humanoid's shapes; A and C at the ant's)
-with its launches on the paths that run that shape, time per launch, plain
-time, bound, error, registers, shared memory and resident blocks per SM,
+twin's A, B and C; B's widest route on the padded twin; A and B at the
+humanoid's shapes; A and C at the ant's) with its launches on the paths
+that run that shape (for B's widest route, ops.launch_counts["cg_widest"]
+summed over every path the run drives, which must be 0: no scene has
+that many rows), time per launch, plain time, bound, error, registers, shared memory and resident blocks per SM,
 every number measured in this run, and last
 {"ok": true, "device": {...}}.
 
@@ -324,6 +340,55 @@ def phase_kernel_b(m, gen, name="cg", other_batches=OTHER_BATCHES,
         dict(errs, active_contacts=active, ncon=st.ncon, nlimit=st.nlimit)
 
 
+WIDEST_PAD = 240      # inactive contacts added to the twin's 23: 1,052 rows
+
+
+def phase_kernel_b_widest(m, gen):
+    """Kernel B's widest route, cg_kernel<0> (more than 1,024 contact rows
+    or 256 limit rows), on BATCH twin contact systems padded with
+    WIDEST_PAD inactive contacts (kernel_bench.padded_contacts), by
+    kernel_bench.check_cg, and bit for bit across two launches; returns
+    (kernels row, errors).  No path of the repo launches this route."""
+    from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg, contact_states,
+                                            padded_contacts, time_ms)
+    from vnl_tpu_torch.ops import cg as cg_ops
+    (args, st), active = contact_states(m, BATCH, gen)
+    args, st = padded_contacts(args, st, WIDEST_PAD)
+    name = cg_ops.kernel_name(st)
+    if name != "cg_kernel<0>":
+        raise AssertionError(f"the padded twin takes {name}")
+    ker = cg_ops._launch(st, args)
+    torch.cuda.synchronize()
+    errs = check_cg(st, args, ker)                 # rtol = atol = 1e-3
+    same_bits("cg_widest", ker, cg_ops._launch(st, args))
+    ms = time_ms(lambda: cg_ops._launch(st, args), queued=QUEUED)
+    plain_ms = time_ms(lambda: cg_ops.cg_plain(*args, statics=st), reps=5)
+    b_ms, b_by = bound_ms(*cg_cost(st, args))
+    res = cg_ops.resources(st, m.device)
+    row = dict(name="cg_widest", kernel="cg", route="cuda",
+               shape=dict(batch=BATCH, nv=st.nv, ncon=st.ncon,
+                          nlimit=st.nlimit, rows=st.nlimit + 4 * st.ncon,
+                          instantiation=name),
+               source="vnl_tpu_torch/csrc/cg.cu",
+               replaces="vnl_tpu/ops/pallas_cg.py:74",
+               max_abs_err=max(errs[n] for n in CG_OUT),
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, regs=res["regs"],
+               smem_bytes=res["smem_bytes"],
+               blocks_per_sm=res["blocks_per_sm"],
+               local_bytes=res["local_bytes"],
+               spill_bytes=spill_bytes("cg", mangled(name)),
+               checked_envs=BATCH, off_envs=errs["off_envs"],
+               unstable_envs=errs["unstable_envs"],
+               # counted on its own; no scene of the repo has > 1,024
+               # contact rows, so no path may launch it
+               counter="cg_widest", on_paths=False)
+    print(json.dumps({"kernel_b_widest": {k: row[k] for k in (
+        "shape", "max_abs_err", "off_envs", "ms", "plain_ms", "bound_ms",
+        "regs", "local_bytes", "spill_bytes")}}), flush=True)
+    return row, dict(errs, active_contacts=active)
+
+
 def phase_rollout(device):
     from vnl_tpu_torch import compat
     from vnl_tpu_torch.envs import make_twin_env
@@ -378,10 +443,11 @@ def spd_batch(batch, n, gen):
 
 
 # Kernel C's other inputs, beside the twin's pair (n = 73, tile (10, 3)):
-# n = 7 (box_chain, ball_arm: tile (2, 1)), 29 (tile (4, 1)), 64 ((8, 2)),
-# 96 (star96: (12, 3)) and the shared-memory route at 97 and 120, each at
-# an odd and an even count of matrices.
-SWEEP_NS = (7, 29, 64, 96, 97, 120)
+# the one-warp route at n = 7 (box_chain, ball_arm), 14 (the ant), 16, 27
+# (the humanoid), 29 and 32; the register tiles at 64 ((8, 2)) and 96
+# (star96: (12, 3)); the shared-memory route at 97 and 120; each at an odd
+# and an even count of matrices.
+SWEEP_NS = (7, 14, 16, 27, 29, 32, 64, 96, 97, 120)
 SWEEP_COUNTS = (3, 12)
 
 
@@ -404,24 +470,54 @@ def check_sweep(name, a, errs):
     same_bits(name, [ker], [sweep._launch(a)])
 
 
+def sweep_kernel_name(route) -> str:
+    """The part of kernel C's mangled name that names a route's
+    instantiation."""
+    if route.kind == "warp":
+        return "sweep_warp_kernelILi{}EE".format(route.tile[0])
+    if route.kind == "register":
+        return "sweep_tile_kernelILi{}ELi{}EE".format(*route.tile)
+    return "sweep_kernelP"
+
+
+def sweep_route_report(n: int, kind: str) -> dict:
+    """Kernel C's route for n, its registers, local bytes and spills
+    (ptxas's report where this run built it); raises if the route is not
+    ``kind`` or, on the register and one-warp routes, if it spills or
+    keeps local memory."""
+    from vnl_tpu_torch.ops import sweep
+    route, res = sweep.route(n), sweep.resources(n)
+    spill = spill_bytes("sweep", sweep_kernel_name(route))
+    if route.kind != kind or (kind != "shared" and
+                              (spill or res["local_bytes"])):
+        raise AssertionError(f"kernel C for n = {n}: {route}, {spill} "
+                             f"spill bytes, {res['local_bytes']} local bytes")
+    return dict(res, spill_bytes=spill)
+
+
 def phase_kernel_c(m, gen):
     from vnl_tpu_torch.kernel_bench import (QUEUED, random_states, time_ms,
                                             twin_pair)
     from vnl_tpu_torch.ops import sweep
     route, res = sweep.route(m.nv), sweep.resources(m.nv)
-    # the main path's kernel: a register tile with no spills (ptxas's
-    # report where this run built it) and no local memory at all
-    own_spill = spill_bytes("sweep", "sweep_tile_kernelILi{}ELi{}EE".format(
-        *route.tile))
-    if route.kind != "register" or own_spill or res["local_bytes"]:
-        raise AssertionError(f"kernel C for n = {m.nv}: {route}, {own_spill} "
-                             f"spill bytes, {res['local_bytes']} local bytes")
+    # the main path's kernel: a register tile with no spills and no local
+    # memory at all
+    sweep_route_report(m.nv, "register")
     pair = twin_pair(m, random_states(m, BATCH, gen))   # (2, B, nv, nv)
     errs = {}
     check_sweep("twin_pair", pair, errs)
+    routes = {}
     for n in SWEEP_NS:
+        r = sweep.route(n)
+        routes[n] = sweep_route_report(n, r.kind)
+        if (r.kind == "warp") != (n <= 32):
+            raise AssertionError(f"kernel C for n = {n}: {r}")
         for count in SWEEP_COUNTS:
             check_sweep(f"spd_{count}x{n}", spd_batch(count, n, gen), errs)
+    print(json.dumps({"kernel_c_routes": {
+        n: {k: r[k] for k in ("route", "tile", "regs", "local_bytes",
+                              "spill_bytes", "threads", "blocks_per_sm")}
+        for n, r in routes.items()}}), flush=True)
     ms = time_ms(lambda: sweep._launch(pair), queued=QUEUED)
     wide = spd_batch(pair.numel() // m.nv ** 2, 120, gen)
     shared_ms = time_ms(lambda: sweep._launch(wide), queued=QUEUED)
@@ -804,7 +900,8 @@ def print_split(scene, m, trees):
     at its shapes, and the times of both trees if compare_kernels took
     them (``trees``)."""
     from vnl_tpu_torch.kernel_bench import SCENE_PRESS, stage_split
-    kernels = ("position", "cg") if scene == "humanoid" else ("position",)
+    kernels = ("position", "cg") if scene == "humanoid" else \
+        ("position", "sweep")
     split = stage_split(m, BATCH, press=SCENE_PRESS[scene], kernels=kernels)
     if trees:
         split["trees"] = {k: v for k, v in trees.items()
@@ -885,13 +982,15 @@ def phase_ant(device, trees=None):
     errs_c = {"active_contacts": active}
     check_sweep("ant_newton", H, errs_c)
     route = sweep.route(m.nv)
-    res = sweep.resources(m.nv)
+    res = sweep_route_report(m.nv, "warp")
     ms = time_ms(lambda: sweep._launch(H), queued=QUEUED)
     plain_ms = time_ms(lambda: sweep.inv_spd_sweep_plain(H), reps=5)
     library_ms = time_ms(lambda: torch.linalg.inv(H), reps=10)
     b_ms, b_by = bound_ms(2 * BATCH * m.nv ** 2 * 4, BATCH * 2 * m.nv ** 3)
     row_c = dict(name="sweep_ant_newton", kernel="sweep", route="cuda",
-                 shape=dict(batch=BATCH, n=m.nv, tile=list(route.tile)),
+                 shape=dict(batch=BATCH, n=m.nv, tile=list(route.tile),
+                            instantiation="sweep_warp_kernel<{}>".format(
+                                route.tile[0])),
                  source="vnl_tpu_torch/csrc/sweep.cu",
                  replaces="vnl_tpu/ops/pallas_linalg.py:49",
                  max_abs_err=errs_c["ant_newton"], ms=ms, plain_ms=plain_ms,
@@ -899,9 +998,12 @@ def phase_ant(device, trees=None):
                  regs=res["regs"], smem_bytes=res["smem_bytes"],
                  blocks_per_sm=res["blocks_per_sm"],
                  local_bytes=res["local_bytes"],
-                 spill_bytes=spill_bytes(
-                     "sweep", "sweep_tile_kernelILi{}ELi{}EE".format(
-                         *route.tile)))
+                 spill_bytes=res["spill_bytes"], kernel_route=route.kind,
+                 # compare_kernels' times of both trees, in turns (--old)
+                 trees=(trees or {}).get("sweep_ant_ms"))
+    print(json.dumps({"kernel_c_ant": {k: row_c[k] for k in (
+        "kernel_route", "shape", "regs", "spill_bytes", "ms", "bound_ms",
+        "library_ms", "plain_ms", "trees")}}), flush=True)
     env = AntTracking(device=device)
     # every forward pass (4 a physics step, RK4) launches A once and, by
     # its one Newton iteration, C once; B never
@@ -1399,6 +1501,35 @@ def phase_checkpoint_tools(device):
     return rep, add_counts(*all_counts)
 
 
+STEPPING_SAMPLES = 3
+
+
+def phase_stepping(device):
+    """Phase 13: the stepping bench at BATCH envs; returns (launch counts,
+    its line)."""
+    from vnl_tpu_torch import bench
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = bench.run_stepping(device, batch=BATCH, n_steps=UNROLL,
+                             samples=STEPPING_SAMPLES, warmup=2)
+    counts = dict(launch_counts)
+    d = out.pop("state")
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (d.pipeline_state.qpos, d.pipeline_state.qvel,
+                           d.reward))
+    few = [c for c in out["launches_per_sample"]
+           if c["position"] < 100 or c["cg"] < 100]
+    if not finite or few or out["samples"] != STEPPING_SAMPLES or \
+            out["envs"] != BATCH:
+        raise AssertionError(f"stepping bench: finite {finite}, launches "
+                             f"{out['launches_per_sample']}, {out['envs']} "
+                             "envs")
+    out["name_and_power_limit"] = bench.gpu_name_and_power_limit()
+    print(json.dumps({"stepping": out}), flush=True)
+    return counts, out
+
+
 def compare_trees(old: str) -> dict:
     """tools/compare_kernels.py --old ``old``: {key: {"old": ms, "new":
     ms}} of both trees' kernels, timed in turns."""
@@ -1409,7 +1540,10 @@ def compare_trees(old: str) -> dict:
     if out.returncode != 0:
         raise AssertionError(f"compare_kernels: {out.stderr[-2000:]}")
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    return {k: v for k, v in res.items() if k.endswith("_ms")}
+    trees = {k: v for k, v in res.items() if k.endswith("_ms")}
+    trees["position_same_bits"] = res["position_same_bits"]
+    print(json.dumps({"compare_kernels": trees}), flush=True)
+    return trees
 
 
 def main() -> int:
@@ -1447,6 +1581,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     row_a, errs_a = phase_kernel_a(m, gen)
     row_b, errs_b = phase_kernel_b(m, gen)
+    row_bw, errs_bw = phase_kernel_b_widest(m, gen)
     counts, info["rollout"] = phase_rollout(device)
     row_c, errs_c = phase_kernel_c(m, gen)
     counts_fused, info["training_fused"] = phase_training(True, steps=2)
@@ -1458,21 +1593,34 @@ def main() -> int:
     info["render"] = phase_render(device)
     counts_dp, info["data_parallel"] = phase_data_parallel(device)
     info["checkpoint_tools"], counts_tools = phase_checkpoint_tools(device)
+    counts_step, info["stepping"] = phase_stepping(device)
     twin_counts = add_counts(counts, counts_fused, counts_unfused,
-                             *counts_cli, counts_dp, counts_tools)
-    kernels = [row_a, row_b, row_c] + rows_h + rows_ant
+                             *counts_cli, counts_dp, counts_tools,
+                             counts_step)
+    kernels = [row_a, row_b, row_bw, row_c] + rows_h + rows_ant
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
-        # phases 4, 6, 7, 11, 12; the humanoid's: 8; the ant's: 9), each path
-        # counted from zero on its own
+        # phases 4, 6, 7, 11, 12, 13; the humanoid's: 8; the ant's: 9), each
+        # path counted from zero on its own; B's widest route is on none,
+        # so its count is summed over all of them and must be 0
         paths = (counts_h if row["name"].endswith("humanoid") else
                  counts_ant if "ant" in row["name"] else twin_counts)
-        row["launches"] = paths.get(row["kernel"], 0)
+        counter = row.pop("counter", row["kernel"])
+        if not row.pop("on_paths", True):
+            row["launches"] = add_counts(twin_counts, counts_h,
+                                         counts_ant).get(counter, 0)
+            if row["launches"]:
+                raise AssertionError(f"{row['name']} launched "
+                                     f"{row['launches']} times on the "
+                                     "paths, which none should take")
+            continue
+        row["launches"] = paths.get(counter, 0)
         if row["launches"] < 1:
             raise AssertionError(f"kernel {row['name']} never launched on "
                                  "its paths")
     info["details"] = dict({"position": errs_a, "cg": errs_b,
-                            "sweep": errs_c}, **errs_h, **errs_ant)
+                            "cg_widest": errs_bw, "sweep": errs_c},
+                           **errs_h, **errs_ant)
 
     from vnl_tpu_torch.bench import gpu_name_and_power_limit
     smi = gpu_name_and_power_limit()

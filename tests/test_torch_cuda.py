@@ -192,19 +192,7 @@ def _padded(model, pad, batch=B):
     (args, st), _ = _cg_args(model, *_states(model, press=0.005,
                                              batch=batch))
     narrow = cg_ops.cg(*args, statics=st)
-    reps = -(-pad // st.ncon)
-    wide = cg_ops.CgStatics.make(
-        st.nv, st.lim_dof, *[np.concatenate([c] + [c] * reps)[:st.ncon + pad]
-                             for c in (st.chain1, st.chain2)],
-        st.iters, st.ls_iters)
-    args = list(args)
-    args[4] = torch.cat([args[4]] + [args[4]] * reps,
-                        2)[:, :, :st.ncon + pad].contiguous()
-    for i in (8, 9, 10):
-        args[i] = torch.cat([args[i]] + [args[i]] * reps,
-                            1)[:, :st.ncon + pad].contiguous()
-    args[9][:, st.ncon:] = -1e3         # far from touching: no force
-    return args, wide, narrow
+    return (*kernel_bench.padded_contacts(args, st, pad), narrow)
 
 
 @pytest.mark.cuda
@@ -234,17 +222,23 @@ def test_cg_kernel_wide_route_reruns(model):
 @pytest.mark.cuda
 def test_cg_kernel_widest_system(model):
     """More than 1,024 contact rows (the line search from shared memory,
-    cg_kernel<0>): the twin's system with 240 inactive contacts more."""
+    cg_kernel<0>): the twin's system with 240 inactive contacts more; its
+    launches are also counted on their own."""
     args, wide, narrow = _padded(model, 240)
     assert cg_ops.kernel_name(wide) == "cg_kernel<0>"
     _check_cg(args, wide)
+    before = launch_counts["cg"], launch_counts["cg_widest"]
     got = cg_ops.cg(*args, statics=wide)
+    assert (launch_counts["cg"], launch_counts["cg_widest"]) == \
+        (before[0] + 1, before[1] + 1)
     _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
 
 
-# every register tile (n = 1 and 16, 29, 64, 73, 96) and the shared-memory
-# route (97, 120), odd and even matrix counts, and the twin's stacked pair
-SWEEP_CASES = [(n, count) for n in (1, 16, 29, 64, 73, 96, 97, 120)
+# the one-warp route (n = 1, 14, 16 on T = 16; 17, 27, 29, 32 on T = 32),
+# every register tile (64, 73, 96) and the shared-memory route (97, 120),
+# odd and even matrix counts, and the twin's stacked pair
+SWEEP_CASES = [(n, count) for n in (1, 14, 16, 17, 27, 29, 32, 64, 73, 96,
+                                    97, 120)
                for count in (3, 12, 2048)] + [("twin", B)]
 
 

@@ -28,7 +28,7 @@ import yaml
 from vnl_tpu.data.reference_clip import ReferenceClip as JClip
 from vnl_tpu.envs.rodent import RodentTracking as JRodent
 from vnl_tpu_torch import compat
-from vnl_tpu_torch.envs import State, make_twin_env
+from vnl_tpu_torch.envs import make_twin_env
 
 import torch_parity as tp
 
@@ -100,15 +100,6 @@ def _check_reset(pair):
     assert ts.obs.shape == (B, 232) and ts.info["traj"].shape == (B, 795)
 
 
-def _to_torch_state(js) -> State:
-    info = {k: (torch.as_tensor(np.asarray(v)).long()
-                if k in ("cur_frame", "sub_clip_frame", "sub_clip_length")
-                else tp.to_torch(v)) for k, v in js.info.items()}
-    return State(tp.data_to_torch(js.pipeline_state), tp.to_torch(js.obs),
-                 tp.to_torch(js.reward), tp.to_torch(js.done),
-                 {k: tp.to_torch(v) for k, v in js.metrics.items()}, info)
-
-
 def test_step_matches(envs, reset_pair):
     _check_step(envs, reset_pair)
 
@@ -126,7 +117,7 @@ def _check_step(envs, reset_pair):
     rng = np.random.default_rng(12)
     action = rng.uniform(-1, 1, size=(B, 30)).astype(np.float32)
     jn = jax.jit(jax.vmap(jenv.step))(js, jnp.asarray(action))
-    tn = tenv.step(_to_torch_state(js), torch.as_tensor(action))
+    tn = tenv.step(tp.rodent_state_to_torch(js), torch.as_tensor(action))
     tp.assert_close(tn.obs, jn.obs, 1e-3, 1e-3, "obs")
     tp.assert_close(tn.info["traj"], jn.info["traj"], 1e-3, 1e-3, "traj")
     for k in TERMS:

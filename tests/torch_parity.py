@@ -17,6 +17,7 @@ import torch
 from tools import export_torch_assets as exporter
 from vnl_tpu import mjcf
 from vnl_tpu_torch import compat
+from vnl_tpu_torch.envs import State
 from vnl_tpu_torch.physics.model import Data as TData
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,6 +96,17 @@ def data_to_torch(d) -> TData:
     """A batched vnl_tpu Data as a torch Data (same field names)."""
     return TData(**{f.name: to_torch(getattr(d, f.name))
                     for f in dataclasses.fields(TData)})
+
+
+def rodent_state_to_torch(js) -> State:
+    """A batched vnl_tpu RodentTracking State as the port's State (the
+    frame counters as int64)."""
+    info = {k: (torch.as_tensor(np.array(v)).long()
+                if k in ("cur_frame", "sub_clip_frame", "sub_clip_length")
+                else to_torch(v)) for k, v in js.info.items()}
+    return State(data_to_torch(js.pipeline_state), to_torch(js.obs),
+                 to_torch(js.reward), to_torch(js.done),
+                 {k: to_torch(v) for k, v in js.metrics.items()}, info)
 
 
 def perturbed_states(jm, batch, seed, press=0.0, joint_scale=0.08,

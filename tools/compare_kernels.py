@@ -2,8 +2,12 @@
 turns (old, new, new, old), at the shapes the rollouts give them (1024
 envs: the rodent twin's A, B and C, C on the (2, 1024, 73, 73) stack
 [qM, qM + h diag(B)]; the humanoid's A and B, its contact states pressed
-0.3 into the floor; the ant's A), and prints one JSON line with every
-turn and the median of each tree's turns.
+0.3 into the floor, and C on its (2, 1024, 27, 27) stack; the ant's A
+and C on the 1024 Hessians of its first Newton iteration), and prints one
+JSON line with every turn and the median of each tree's turns.  Each turn
+also hashes kernel A's outputs at the three scenes' inputs
+(``position_digest``); ``position_same_bits`` says whether every turn of
+both trees gave the same bits.
 
 Each turn is a process of its own that imports ``vnl_tpu_torch`` from one
 tree, builds that tree's kernels and times ``ops.position._launch``,
@@ -18,6 +22,7 @@ and ``chip_smoke.py`` (for example
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -28,7 +33,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 1024
 SCENES = ("humanoid", "ant")   # kernel_bench.scene: A (and B) at their shapes
 KEYS = ("position_ms", "cg_ms", "sweep_ms", "position_humanoid_ms",
-        "cg_humanoid_ms", "position_ant_ms")
+        "cg_humanoid_ms", "sweep_humanoid_ms", "position_ant_ms",
+        "sweep_ant_ms")
 
 
 def time_tree(root: str) -> dict:
@@ -58,6 +64,13 @@ def time_tree(root: str) -> dict:
     def ms(fn):
         return kb.time_ms(fn, reps=50, queued=kb.QUEUED)
 
+    digest = hashlib.sha256()
+
+    def bits(outs):
+        for o in outs:
+            digest.update(o.cpu().numpy().tobytes())
+
+    bits(pos._launch(m, qpos))
     out = dict(root=os.path.relpath(root, ROOT),
                position_ms=ms(lambda: pos._launch(m, qpos)),
                cg_ms=ms(lambda: cg_ops._launch(st, args)),
@@ -66,10 +79,16 @@ def time_tree(root: str) -> dict:
         sm, kw = kb.scene(name)
         gen = torch.Generator(device="cuda").manual_seed(0)
         q = kb.random_states(sm, BATCH, gen)
+        bits(pos._launch(sm, q))
         out[f"position_{name}_ms"] = ms(lambda: pos._launch(sm, q))
         if "cg" in kw["kernels"]:
             (a, s), _ = kb.contact_states(sm, BATCH, gen, kw["press"])
             out[f"cg_{name}_ms"] = ms(lambda: cg_ops._launch(s, a))
+            c = kb.twin_pair(sm, q)           # the unfused stage's pair
+        else:                                 # the Newton Hessians
+            c, _ = kb.newton_hessians(sm, BATCH, gen, kw["press"])
+        out[f"sweep_{name}_ms"] = ms(lambda: sweep._launch(c))
+    out["position_digest"] = digest.hexdigest()
     return out
 
 
@@ -104,7 +123,9 @@ def main() -> int:
     def med(tree, key):
         return statistics.median(t[key] for t in turns if t["tree"] == tree)
 
-    print(json.dumps(dict(card=smi, batch=BATCH, turns=turns, **{
+    same = len({t["position_digest"] for t in turns}) == 1
+    print(json.dumps(dict(card=smi, batch=BATCH, turns=turns,
+                          position_same_bits=same, **{
         k: dict(old=med("old", k), new=med("new", k)) for k in KEYS})))
     return 0
 

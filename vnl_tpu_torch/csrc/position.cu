@@ -57,6 +57,8 @@
 
 #include <cuda_runtime.h>
 
+#include "warp_sweep.cuh"
+
 struct PosModel {
   int nb, nj, nv, nq, ng, damped, nrounds, npair;
   const int* body_parent;   // (nb)
@@ -665,25 +667,8 @@ position_warp_kernel(PosModel m, const float* __restrict__ qpos_g, PosOut out,
     a[r] = x;
   }
 
-  // ---- symmetric sweep (as in position_kernel): for pivot k, with
-  // column and row k as they were before the update,
-  //   v = A[:,k] - e_k,  w = (A[k,:] - e_k) / A[k,k],
-  //   A <- A - v w^T,    A[k,k] <- A[k,k] - 2 ----
-  const int npiv = (skip & 1) ? 0 : nv;
-#pragma unroll
-  for (int k = 0; k < T; ++k) {
-    if (k < npiv) {
-      const float dinv = 1.0f / __shfl_sync(0xffffffffu, a[k], k);
-      const float w = (lane == k ? a[k] - 1.0f : a[k]) * dinv;
-#pragma unroll
-      for (int r = 0; r < T; ++r) {
-        float v = __shfl_sync(0xffffffffu, a[r], k);
-        if (r == k) v -= 1.0f;
-        a[r] -= v * w;
-      }
-      if (lane == k) a[k] -= 2.0f;   // the rank-1 form over-counts it by 2
-    }
-  }
+  // ---- symmetric sweep (as in position_kernel; warp_sweep.cuh) ----
+  warp_sweep<T>(a, (skip & 1) ? 0 : nv, lane);
 
   // ---- sign and unscale; neighbouring lanes store neighbouring columns ----
   float* o = (mi ? out.qMhBinv : out.qMinv) + (size_t)e * nv * nv;

@@ -22,8 +22,17 @@
 // tens of microseconds.  The real cost is the chain of n dependent updates,
 // each ended by a barrier, and the instructions every entry spends on it.
 //
-// Two routes, chosen by n alone (ops/sweep.py route):
-//  * The register route, n <= 96 (sweep_tile_kernel).  A block sweeps two
+// Three routes, chosen by n alone (ops/sweep.py route):
+//  * The one-warp route, n <= 32 (sweep_warp_kernel<T>, T = 16 or 32).
+//    One warp sweeps one matrix and lane s holds column s in T registers.
+//    For pivot k the column comes by shuffles from lane k and the
+//    pivot-row entry is the lane's own register k: no barrier, and the
+//    matrix never passes through shared memory.  The loop is kernel A's
+//    (warp_sweep.cuh).  kWarpMats = 4 warps, four independent matrices,
+//    share a block.  Below 33 the register tiles were mostly padding,
+//    8 warps (256 threads) for the ant's 196 entries, with a barrier
+//    every two pivots.
+//  * The register route, 32 < n <= 96 (sweep_tile_kernel).  A block sweeps two
 //    matrices (matrices 2b and 2b+1 of the flat batch), each with its own
 //    kWarps = 8 warps.  Thread (warp, lane) of a matrix owns the entries
 //    (r, s) = (row(warp, i), lane + 32 j), i < TR, j < TC, in registers for
@@ -52,7 +61,7 @@
 //    conflicts) and, after one barrier, stores 0.5 (S[r,s] + S[s,r])
 //    coalesced; the two terms are the same two floats in either order, so
 //    the output is bitwise symmetric.  512 threads, at most 64 registers
-//    (two blocks per SM); the smallest tile, 2 x 1, covers n = 16, the
+//    (two blocks per SM); the smallest tile, 8 x 2, covers n = 64, the
 //    largest, 12 x 3, n = 96.  The next, 16 x 4, would keep 64 entries and
 //    20 pivot operands in a thread, more than the 64 registers of two such
 //    blocks per SM.
@@ -65,6 +74,8 @@
 // caller's stream.
 
 #include <cuda_runtime.h>
+
+#include "warp_sweep.cuh"
 
 constexpr int kWarps = 8;                        // warps that sweep a matrix
 constexpr int kMats = 2;                         // matrices a block
@@ -324,44 +335,127 @@ __global__ void sweep_kernel(const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// C interface; tr = 0 selects the shared-memory route
+// one-warp route, n <= 32
+// ---------------------------------------------------------------------------
+
+// Matrices (warps) a block: 1, 2, 4 and 8 took the same time on an H100
+// (PERF.md); ops/sweep.py WARP_MATS mirrors it.
+constexpr int kWarpMats = 4;
+
+// One warp sweeps one matrix: lane s holds column s (T rows, zeros beyond
+// n) in registers.  For pivot k the column entries (r, k) come by
+// shuffles from lane k and the pivot-row entry (k, s) is the lane's own
+// register k, both taken before the update (warp_sweep.cuh, shared with
+// kernel A); no barrier, and the matrix never passes through shared
+// memory.  The kWarpMats warps of a block are independent.  The
+// symmetrisation goes through a
+// T x (T + 1) buffer of the warp's own (an odd row stride: the transposed
+// read has no bank conflicts), behind a __syncwarp.  skip: as for the
+// register route.
+template <int T>
+__global__ void __launch_bounds__(kWarpMats * 32)
+sweep_warp_kernel(const float* __restrict__ a, float* __restrict__ out,
+                  int batch, int n, int skip) {
+  extern __shared__ float sm[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t g = (size_t)blockIdx.x * kWarpMats + w;
+  if (g >= (size_t)batch) return;   // the whole warp
+  const float* src = a + g * n * n;
+  const bool col = lane < n;
+  const float sc = !col ? 0.0f
+                   : (skip & 2) ? 1.0f
+                                : rsqrtf(src[(size_t)lane * n + lane]);
+
+  // ---- column `lane`, scaled, into registers ----
+  float x[T];
+#pragma unroll
+  for (int r = 0; r < T; ++r) {
+    const float sr = __shfl_sync(0xffffffffu, sc, r);
+    x[r] = (r < n && col) ? src[(size_t)r * n + lane] * sr * sc : 0.0f;
+  }
+
+  // ---- the sweep, as kernel A's one-warp route runs it ----
+  warp_sweep<T>(x, (skip & 1) ? 0 : n, lane);
+
+  // ---- sign, unscale, symmetrise; neighbouring lanes store neighbouring
+  // columns ----
+  float* dst = out + g * n * n;
+  if (skip & 2) {
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+      if (r < n && col) dst[r * n + lane] = x[r];
+    return;
+  }
+  constexpr int LD = T + 1;
+  float* S = sm + w * T * LD;
+#pragma unroll
+  for (int r = 0; r < T; ++r) {
+    const float sr = __shfl_sync(0xffffffffu, sc, r);
+    if (r < n && col) S[r * LD + lane] = -x[r] * sr * sc;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < T; ++r)
+    if (r < n && col)
+      dst[r * n + lane] = 0.5f * (S[r * LD + lane] + S[lane * LD + r]);
+}
+
+// ---------------------------------------------------------------------------
+// C interface: tc = 1 selects the one-warp route (T = tr, kWarpMats
+// matrices a block), tr = 0 the shared-memory route, any other (tr, tc) a register
+// tile
 // ---------------------------------------------------------------------------
 
 constexpr int kSmemThreads = 256;
 
 typedef void (*SweepKernel)(const float*, float*, int, int, int);
 
-// The instantiated tiles: (TR, TC) covers n <= min(8 TR, 32 TC), TR even.
-// ops/sweep.py lists the same shapes (TILE_SHAPES) and chooses.
-static SweepKernel pick_tile(int tr, int tc) {
+// The instantiated routes: WARP_TILE(T) covers n <= T; TILE(TR, TC) covers
+// n <= min(8 TR, 32 TC), TR even.  ops/sweep.py lists the same shapes
+// (TILE_SHAPES) and chooses.
+static SweepKernel pick(int tr, int tc) {
+#define WARP_TILE(T) \
+  if (tr == T && tc == 1) return sweep_warp_kernel<T>;
 #define TILE(TR, TC) \
   if (tr == TR && tc == TC) return sweep_tile_kernel<TR, TC>;
-  TILE(2, 1)
-  TILE(4, 1)
+  WARP_TILE(16)
+  WARP_TILE(32)
   TILE(8, 2)
   TILE(10, 3)
   TILE(12, 3)
 #undef TILE
+#undef WARP_TILE
   return nullptr;
 }
 
+static bool warp_route(int tr, int tc) { return tr > 0 && tc == 1; }
+
 extern "C" size_t sweep_smem_bytes(int n, int tr, int tc) {
   if (tr == 0) return ((size_t)n * n + 5 * (size_t)n) * sizeof(float);
+  if (warp_route(tr, tc))
+    return (size_t)kWarpMats * tr * (tr + 1) * sizeof(float);
   const size_t snap = (size_t)2 * 32 * tc;
   return (size_t)kMats * (2 * snap + n + (size_t)n * (n | 1)) * sizeof(float);
 }
 
-// The kernel of a route and its dynamic shared memory, with the limit
-// raised where it passes 48 KB; nullptr where n does not fit the route.
-static const void* prepare(int n, int tr, int tc, size_t* smem,
-                           cudaError_t* err) {
+// The kernel of a route, its threads a block and its dynamic shared
+// memory, with the limit raised where it passes 48 KB; nullptr where n
+// does not fit the route.
+static const void* prepare(int n, int tr, int tc, int* threads,
+                           size_t* smem, cudaError_t* err) {
   *err = cudaSuccess;
   const void* fn;
   if (tr == 0) {
     fn = (const void*)sweep_kernel;
+    *threads = kSmemThreads;
+  } else if (warp_route(tr, tc)) {
+    fn = (const void*)pick(tr, tc);
+    if (!fn || n > tr) return nullptr;
+    *threads = 32 * kWarpMats;
   } else {
-    fn = (const void*)pick_tile(tr, tc);
+    fn = (const void*)pick(tr, tc);
     if (!fn || n > kWarps * tr || n > 32 * tc) return nullptr;
+    *threads = kTileThreads;
   }
   if (n < 1) return nullptr;
   *smem = sweep_smem_bytes(n, tr, tc);
@@ -375,16 +469,17 @@ static const void* prepare(int n, int tr, int tc, size_t* smem,
 // bytes per block, resident blocks per SM.
 extern "C" int sweep_resources(int n, int tr, int tc, int* out4) {
   size_t smem = 0;
+  int threads = 0;
   cudaError_t err;
-  const void* fn = prepare(n, tr, tc, &smem, &err);
+  const void* fn = prepare(n, tr, tc, &threads, &smem, &err);
   if (!fn) return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, tr ? kTileThreads : kSmemThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      smem);
   out4[0] = a.numRegs;
   out4[1] = (int)a.localSizeBytes;
   out4[2] = (int)(smem + a.sharedSizeBytes);
@@ -396,16 +491,18 @@ extern "C" int sweep_resources(int n, int tr, int tc, int* out4) {
 extern "C" int sweep_launch(const float* a, float* out, int batch, int n,
                             int tr, int tc, void* stream, int skip) {
   size_t smem = 0;
+  int threads = 0;
   cudaError_t err;
-  const void* fn = prepare(n, tr, tc, &smem, &err);
+  const void* fn = prepare(n, tr, tc, &threads, &smem, &err);
   if (!fn) return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
   if (tr == 0) {
-    sweep_kernel<<<batch, kSmemThreads, smem, (cudaStream_t)stream>>>(
-        a, out, n, skip & 3);
+    sweep_kernel<<<batch, threads, smem, st>>>(a, out, n, skip & 3);
   } else {
-    ((SweepKernel)fn)<<<(batch + kMats - 1) / kMats, kTileThreads, smem,
-                        (cudaStream_t)stream>>>(a, out, batch, n, skip & 3);
+    const int per = warp_route(tr, tc) ? kWarpMats : kMats;   // a block
+    ((SweepKernel)fn)<<<(batch + per - 1) / per, threads, smem, st>>>(
+        a, out, batch, n, skip & 3);
   }
   return (int)cudaGetLastError();
 }

@@ -9,10 +9,14 @@ the doubling rounds of its tree walk, its qM assembly or all four left out
 whole, with no line search, with no CG iteration and with its chain walks
 or matvecs left out (``ops.cg._launch``'s ``skip`` bits), and kernel C
 whole, with its pivot loop left out and with loads and stores only
-(``ops.sweep._launch``'s ``skip`` bits), and reads each kernel's
-registers, local-memory bytes, shared memory and resident blocks per SM.  ``check_cg`` is the yardstick that holds kernel B against its plain
-version.  ``python3 -m vnl_tpu_torch.profile_rollout`` prints it as one JSON
-line; ``chip_smoke.py`` takes its inputs and its timer from here.
+(``ops.sweep._launch``'s ``skip`` bits; on a Newton model its first
+iteration's Hessians, else the stacked pair), beside one launch of a
+one-element torch add, the floor of a launch in this timer, and reads
+each kernel's registers, local-memory bytes, shared memory and resident
+blocks per SM.  ``check_cg`` is the yardstick that holds kernel B against
+its plain version.  ``python3 -m vnl_tpu_torch.profile_rollout`` prints
+it as one JSON line; ``chip_smoke.py`` takes its inputs and its timer
+from here.
 """
 
 from __future__ import annotations
@@ -89,6 +93,29 @@ def contact_states(m, batch, gen, press: float = 0.005):
     d, efc, qacc_smooth, active = _solve_inputs(m, batch, gen, press)
     return solver.cg_inputs(m, d, efc, qacc_smooth,
                             max(m.opt.iterations, 1)), active
+
+
+def padded_contacts(args, st, pad: int):
+    """A contact system (``args``, ``st``, from contact_states) with ``pad``
+    more contacts, copies of its first ones pushed 1e3 away from touching,
+    so that they stay inactive and the solve is the original one; more
+    than 1,024 contact rows take kernel B's widest route, cg_kernel<0>,
+    which no scene of the repo reaches.  Returns (args, statics)."""
+    import numpy as np
+    from vnl_tpu_torch.ops import cg as cg_ops
+    reps = -(-pad // st.ncon)
+    wide = cg_ops.CgStatics.make(
+        st.nv, st.lim_dof, *[np.concatenate([c] + [c] * reps)[:st.ncon + pad]
+                             for c in (st.chain1, st.chain2)],
+        st.iters, st.ls_iters)
+    args = list(args)
+    args[4] = torch.cat([args[4]] + [args[4]] * reps,
+                        2)[:, :, :st.ncon + pad].contiguous()
+    for i in (8, 9, 10):
+        args[i] = torch.cat([args[i]] + [args[i]] * reps,
+                            1)[:, :st.ncon + pad].contiguous()
+    args[9][:, st.ncon:] = -1e3         # far from touching: no force
+    return args, wide
 
 
 def newton_hessians(m, batch, gen, press: float = 0.005):
@@ -235,8 +262,9 @@ SCENE_PRESS = dict(humanoid=0.3, ant=0.3)   # both float at qpos0
 
 def scene(name: str, device="cuda"):
     """(model, press=..., kernels=...): the stage_split arguments of the
-    humanoid (kernels A and B, CG 6 / 6) or the ant (kernel A; its Newton
-    solve never takes B), compiled from the committed scenes."""
+    humanoid (kernels A and B, CG 6 / 6) or the ant (kernels A and C on
+    its Newton Hessians; its Newton solve never takes B), compiled from
+    the committed scenes."""
     from vnl_tpu_torch import compat, mjcf
     if name == "humanoid":
         m = mjcf.load_model(compat.DM_HUMANOID_XML, overrides=dict(
@@ -245,7 +273,8 @@ def scene(name: str, device="cuda"):
     if name == "ant":
         m = mjcf.load_model(compat.GYM_ANT_XML, overrides=dict(
             solver="newton", iterations=1, ls_iterations=4), device=device)
-        return m, dict(press=SCENE_PRESS[name], kernels=("position",))
+        return m, dict(press=SCENE_PRESS[name],
+                       kernels=("position", "sweep"))
     raise ValueError(f"no scene {name!r}")
 
 
@@ -291,7 +320,14 @@ def stage_split(m, batch: int = 1024, seed: int = 0, press: float = 0.005,
                                nv=st.nv, ncon=st.ncon, nlimit=st.nlimit,
                                route=cg_ops.kernel_name(st))
     if "sweep" in kernels:
-        pair = twin_pair(m, qpos)
+        from vnl_tpu_torch.physics.model import SolverType
+        if m.opt.solver == int(SolverType.NEWTON):
+            pair, _ = newton_hessians(m, batch, gen, press)
+        else:
+            pair = twin_pair(m, qpos)
+        one = torch.zeros(1, device=m.device)
+        out["empty_launch_ms"] = time_ms(lambda: one.add_(1.0),
+                                         queued=QUEUED)
         out["sweep_ms"] = {
             name: time_ms(lambda: sweep._launch(pair, skip=skip),
                           queued=QUEUED)

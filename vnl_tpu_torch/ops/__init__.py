@@ -5,7 +5,8 @@ inverse of the unfused position stage).
 
 ``launch_counts`` counts kernel launches by name; a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
-path went through the kernels."""
+path went through the kernels.  Kernel B's launches on its widest route,
+``cg_kernel<0>``, are also counted on their own, as "cg_widest"."""
 
 import collections
 

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a`` (Hopper), all sources at once
 in parallel, then loaded with ctypes.  Libraries are named by the hash of
-their source, so an unchanged source is not rebuilt.  The build directory
+their source and of the headers beside it (``csrc/*.cuh``), so an
+unchanged source is not rebuilt.  The build directory
 is ``build/kernels`` beside the package (override: VNL_TPU_TORCH_BUILD).
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -45,8 +46,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + ARCH.encode()).hexdigest()[:12]
+    h = hashlib.sha256()
+    for f in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
+                                     if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    h.update(ARCH.encode())
+    digest = h.hexdigest()[:12]
     return os.path.join(build_dir(), f"lib{name}-{digest}.so")
 
 

@@ -288,6 +288,8 @@ def _launch(st: CgStatics, args, skip: int = 0):
              stream, skip)
     build.check(err, "kernel B (cg)")
     launch_counts["cg"] += 1
+    if kernel_name(st) == "cg_kernel<0>":   # the widest route, by itself
+        launch_counts["cg_widest"] += 1
     return qacc, qfrc, con_f
 
 

@@ -7,7 +7,9 @@ _position_reference does.  ``refine_inv``: Newton-Schulz polish of a
 carried inverse, which the unfused position stage runs on every substep of
 a control step but the first (physics/inertia.py invert_mass_matrix).
 ``refine_inv_general``: the same polish without the symmetrisation, for the
-implicit integrator's unsymmetric (M - h qDeriv)."""
+implicit integrator's unsymmetric (M - h qDeriv).  ``inv_spd_ns``: the
+Jacobi-scaled Newton-Schulz inverse, which nothing calls (as in the JAX
+package)."""
 
 from __future__ import annotations
 
@@ -61,3 +63,22 @@ def refine_inv_general(a: torch.Tensor, x0: torch.Tensor,
     for _ in range(iters):
         x = x @ (eye2 - a @ x)
     return x
+
+
+def inv_spd_ns(a: torch.Tensor, iters: int = 16) -> torch.Tensor:
+    """Inverse of (..., n, n) SPD matrices by Jacobi-scaled Newton-Schulz
+    iteration (vnl_tpu/ops/linalg.py:93 inv_spd_ns): with
+    A~ = D^-1/2 A D^-1/2 and X0 = I / ||A~||_inf, ``iters`` steps of
+    X <- X (2I - A~ X), symmetrised, then unscaled.  It has no caller in
+    either package (the JAX package wrote it as an alternative to the
+    Schur inverse and kept kernel C's sweep), so it has no kernel here."""
+    s = torch.rsqrt(torch.diagonal(a, dim1=-2, dim2=-1))
+    at = a * s[..., :, None] * s[..., None, :]
+    # ||A~||_2 <= ||A~||_inf (symmetric): a safe first step
+    norm = at.abs().sum(-1).amax(-1)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    x = eye / norm[..., None, None]
+    for _ in range(iters):
+        x = x @ (2.0 * eye - at @ x)
+    x = 0.5 * (x + x.transpose(-1, -2))
+    return x * s[..., :, None] * s[..., None, :]

@@ -4,11 +4,13 @@ and inv_spd_fused).
 
 ``inv_spd_sweep(a)`` inverts contiguous float32 SPD matrices (..., n, n).
 On a CUDA tensor it launches the hand-written kernel csrc/sweep.cu by the
-route ``route(n)`` picks: n <= 96 sweeps a register tile per thread, two
-matrices a block, two pivots a barrier; 96 < n <= 238 keeps one matrix in
-shared memory.  On a CPU tensor it runs ``inv_spd_sweep_plain``, the same
-Jacobi scaling, the same n snapshot-and-update steps and the same
-symmetrisation as batched tensor operations.  There is no batch threshold
+route ``route(n)`` picks: n <= 32 sweeps one matrix on one warp, lane s
+holding column s, with no barrier; 32 < n <= 96 sweeps a register tile per
+thread, two matrices a block, two pivots a barrier; 96 < n <= 238 keeps
+one matrix in shared memory.  On a CPU tensor it runs
+``inv_spd_sweep_plain``, the same Jacobi scaling, the same n
+snapshot-and-update steps and the same symmetrisation as batched tensor
+operations.  There is no batch threshold
 and no other inverse to fall back on: a build or launch failure raises.
 The unfused position stage calls it as ``inv_spd_fused``
 (physics/inertia.py invert_mass_matrix).
@@ -24,14 +26,18 @@ import torch
 from vnl_tpu_torch.ops import build, launch_counts
 
 WARPS = 8            # warps that sweep one matrix on the register route
-# (TR, TC) register tiles the kernel source instantiates: thread
-# (warp, lane) of a matrix owns TR of its rows, in pairs (two pivots a
-# barrier need both rows of a pair in one warp, so TR is even), and the
-# columns lane + 32 * j, j < TC, so a tile covers
-# n <= min(WARPS * TR, 32 * TC).  The next tile, (16, 4), would keep 64
-# entries and 20 pivot operands in a thread, more than the 64 registers of
-# two blocks of 512 threads per SM.
-TILE_SHAPES = ((2, 1), (4, 1), (8, 2), (10, 3), (12, 3))
+# The routes the kernel source instantiates, as (TR, TC).  TC = 1 is the
+# one-warp route: lane s holds column s, TR = T rows of it, so it covers
+# n <= T.  The others are register tiles: thread (warp, lane) of a matrix
+# owns TR of its rows, in pairs (two pivots a barrier need both rows of a
+# pair in one warp, so TR is even), and the columns lane + 32 * j, j < TC,
+# so a tile covers n <= min(WARPS * TR, 32 * TC).  The next tile, (16, 4),
+# would keep 64 entries and 20 pivot operands in a thread, more than the
+# 64 registers of two blocks of 512 threads per SM.
+WARP_TILES = ((16, 1), (32, 1))
+TILE_SHAPES = WARP_TILES + ((8, 2), (10, 3), (12, 3))
+WARP_MATS = 4        # matrices (warps) a block on the one-warp route: the
+                     # source's kWarpMats
 SHARED_THREADS = 256  # the shared-memory route: one matrix a block
 MAX_SMEM = 232448    # dynamic shared memory one block may ask for
 
@@ -46,19 +52,23 @@ MAX_N = max(n for n in range(1, 512) if shared_smem_bytes(n) <= MAX_SMEM)
 
 
 class Route(NamedTuple):
-    kind: str                     # "register" or "shared"
+    kind: str                     # "warp", "register" or "shared"
     tile: Tuple[int, int]         # (TR, TC); (0, 0) on the shared route
 
 
 def route(n: int) -> Route:
-    """The route of kernel C for n x n matrices: the smallest register tile
-    that covers n, else the shared-memory route up to MAX_N (238); chosen
-    by n alone.  ValueError beyond."""
+    """The route of kernel C for n x n matrices: the one-warp route of the
+    smallest T >= n up to 32, else the smallest register tile that covers
+    n, else the shared-memory route up to MAX_N (238); chosen by n alone.
+    ValueError beyond."""
     if n < 1 or n > MAX_N:
         raise ValueError(f"kernel C inverts 1 <= n <= {MAX_N} (one matrix "
                          f"must fit {MAX_SMEM} bytes of shared memory), "
                          f"got n = {n}")
-    for tr, tc in TILE_SHAPES:
+    for t, _ in WARP_TILES:
+        if t >= n:
+            return Route("warp", (t, 1))
+    for tr, tc in TILE_SHAPES[len(WARP_TILES):]:
         if WARPS * tr >= n and 32 * tc >= n:
             return Route("register", (tr, tc))
     return Route("shared", (0, 0))
@@ -138,10 +148,10 @@ def resources(n: int) -> dict:
     and resident blocks per SM of kernel C for n x n matrices, with its
     route."""
     r = route(n)
+    threads = dict(shared=SHARED_THREADS, warp=32 * WARP_MATS,
+                   register=2 * WARPS * 32)[r.kind]
     return dict(build.resources("sweep", n, *r.tile),
-                threads=SHARED_THREADS if r.kind == "shared"
-                else 2 * WARPS * 32,
-                route=r.kind, tile=list(r.tile))
+                threads=threads, route=r.kind, tile=list(r.tile))
 
 
 def _launch(a: torch.Tensor, skip: int = 0) -> torch.Tensor:
