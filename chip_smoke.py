@@ -128,12 +128,32 @@ Phases, in order; any failure exits non-zero:
      stepped raw with random actions, no policy) at 1024 envs, 20 control
      steps a sample, 2 warm-up calls and 3 samples; A and B at least 100
      launches each in every sample, every qpos, qvel and reward finite;
-     its JSON line ({"stepping": ...}).
+     its JSON line ({"stepping": ...});
+ 14. the device-numerics check: vnl_tpu_torch.check_numerics at 1024 envs
+     against the goldens vnl_tpu computed on the CPU
+     (vnl_tpu_torch/assets/goldens/): the 16 envs of each rollout golden
+     (twin_actions, twin_keeper with the keeper's deterministic policy in
+     the loop, humanoid_actions, ant_actions) tiled to 1024 (the goldens
+     of a scene stepped as one batch: the twin's two as 2048 envs), reset
+     with the stored draws and stepped 20 control steps, fused and
+     unfused: max
+     |dqpos| over steps 1-5 within max(5e-4, 4 x the golden's own one-ulp
+     spread), max |dreward| over all 20 within 1e-2, the keeper's actions
+     over steps 1-5 within 1e-2; forward() on the 128 states of each forward
+     golden, fused and unfused, max |dqacc| within 5e-2 x max(qacc scale,
+     1); A and B (the ant: A and C) launched in every fused part, C in
+     every unfused one, A never there; a drift table a golden and its
+     report (check_numerics.json beside --out); then kernel C on the
+     humanoid's unfused pair (2, 1024, 27, 27; the one-warp route
+     sweep_warp_kernel<32>, which only this phase runs) against its plain
+     version as in 5, timed with torch.linalg.inv; a {"numerics": ...}
+     line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
 twin's A, B and C; B's widest route on the padded twin; A and B at the
-humanoid's shapes; A and C at the ant's) with its launches on the paths
-that run that shape (for B's widest route, ops.launch_counts["cg_widest"]
+humanoid's shapes; A and C at the ant's; C at the humanoid's pair) with
+its launches on the paths that run that shape (phase 14 counts for each
+scene it runs; for B's widest route, ops.launch_counts["cg_widest"]
 summed over every path the run drives, which must be 0: no scene has
 that many rows), time per launch, plain time, bound, error, registers, shared memory and resident blocks per SM,
 every number measured in this run, and last
@@ -1530,6 +1550,78 @@ def phase_stepping(device):
     return counts, out
 
 
+def phase_numerics(device, out_dir=""):
+    """Phase 14: vnl_tpu_torch.check_numerics at BATCH envs (every rollout
+    golden, fused and unfused; the three forward goldens, fused and
+    unfused; the kernels' launches in every part), then kernel C on the
+    humanoid's unfused pair (2, BATCH, 27, 27), the shape only this phase's
+    humanoid parts run.  Returns (launch counts by scene, C's humanoid row,
+    report)."""
+    from vnl_tpu_torch import check_numerics
+    from vnl_tpu_torch.kernel_bench import (QUEUED, random_states, time_ms,
+                                            twin_pair)
+    from vnl_tpu_torch.ops import sweep
+    t_phase = time.perf_counter()
+    rep = check_numerics.run(device, batch=BATCH)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "check_numerics.json"), "w") as f:
+            json.dump(rep, f, indent=1)
+    if not rep["ok"]:
+        raise AssertionError(f"check_numerics: {rep['failures']}")
+    counts = {scene: add_counts(*(p["launches"] for p in rep["parts"]
+                                  if p["scene"] == scene))
+              for scene in check_numerics.FORWARDS}
+    # C on the humanoid's pair [qM, qM + h diag(B)], as its unfused stage
+    # inverts it on a control step's first substep
+    m = check_numerics.make_env("humanoid", device, False).sys
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    pair = twin_pair(m, random_states(m, BATCH, gen))
+    errs = {}
+    check_sweep("humanoid_pair", pair, errs)
+    route, res = sweep.route(m.nv), sweep_route_report(m.nv, "warp")
+    flat = pair.reshape(-1, m.nv, m.nv)
+    b_ms, b_by = bound_ms(2 * flat.shape[0] * m.nv ** 2 * 4,
+                          flat.shape[0] * 2 * m.nv ** 3)
+    row = dict(name="sweep_humanoid", kernel="sweep", route="cuda",
+               shape=dict(batch=list(pair.shape[:2]), n=m.nv,
+                          tile=list(route.tile),
+                          instantiation="sweep_warp_kernel<{}>".format(
+                              route.tile[0])),
+               source="vnl_tpu_torch/csrc/sweep.cu",
+               replaces="vnl_tpu/ops/pallas_linalg.py:49",
+               max_abs_err=errs["humanoid_pair"],
+               ms=time_ms(lambda: sweep._launch(pair), queued=QUEUED),
+               plain_ms=time_ms(lambda: sweep.inv_spd_sweep_plain(pair),
+                                reps=5),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lambda: torch.linalg.inv(flat), reps=10),
+               regs=res["regs"], smem_bytes=res["smem_bytes"],
+               blocks_per_sm=res["blocks_per_sm"],
+               local_bytes=res["local_bytes"],
+               spill_bytes=res["spill_bytes"], kernel_route=route.kind)
+    summary = {
+        "rollouts": {name: {stage: {k: r[k] for k in (
+            "envs", "early_qpos", "tol_qpos", "max_reward", "early_actions",
+            "full_horizon_qpos", "bitwise_copies", "first_parted_step",
+            "copies")}
+            for stage, r in stages.items()}
+            for name, stages in rep["rollouts"].items()},
+        "forward": {scene: {stage: {k: r[k] for k in (
+            "contacts", "qacc", "tol_qacc", "qfrc_constraint")}
+            for stage, r in stages.items()}
+            for scene, stages in rep["forward"].items()},
+        "parts_s": {f"{p['kind']} {p['scene']} {p['stage']}": p["s"]
+                    for p in rep["parts"]},
+        "check_s": rep["s"], "launches": counts,
+        "kernel_c_humanoid": {k: row[k] for k in (
+            "shape", "ms", "bound_ms", "library_ms", "plain_ms",
+            "max_abs_err", "regs", "spill_bytes")},
+        "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"numerics": summary}), flush=True)
+    return counts, row, summary
+
+
 def compare_trees(old: str) -> dict:
     """tools/compare_kernels.py --old ``old``: {key: {"old": ms, "new":
     ms}} of both trees' kernels, timed in turns."""
@@ -1594,15 +1686,21 @@ def main() -> int:
     counts_dp, info["data_parallel"] = phase_data_parallel(device)
     info["checkpoint_tools"], counts_tools = phase_checkpoint_tools(device)
     counts_step, info["stepping"] = phase_stepping(device)
+    counts_num, row_ch, info["numerics"] = phase_numerics(
+        device, os.path.dirname(os.path.abspath(args.out)) if args.out
+        else "")
     twin_counts = add_counts(counts, counts_fused, counts_unfused,
                              *counts_cli, counts_dp, counts_tools,
-                             counts_step)
-    kernels = [row_a, row_b, row_bw, row_c] + rows_h + rows_ant
+                             counts_step, counts_num["twin"])
+    counts_h = add_counts(counts_h, counts_num["humanoid"])
+    counts_ant = add_counts(counts_ant, counts_num["ant"])
+    kernels = [row_a, row_b, row_bw, row_c] + rows_h + rows_ant + [row_ch]
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
-        # phases 4, 6, 7, 11, 12, 13; the humanoid's: 8; the ant's: 9), each
-        # path counted from zero on its own; B's widest route is on none,
-        # so its count is summed over all of them and must be 0
+        # phases 4, 6, 7, 11, 12, 13, 14; the humanoid's: 8, 14, where C's
+        # n 27 pair runs only in 14; the ant's: 9, 14), each path counted
+        # from zero on its own; B's widest route is on none, so its count
+        # is summed over all of them and must be 0
         paths = (counts_h if row["name"].endswith("humanoid") else
                  counts_ant if "ant" in row["name"] else twin_counts)
         counter = row.pop("counter", row["kernel"])

@@ -28,11 +28,19 @@ flattens a JAX full-state checkpoint (an Orbax directory or a .msgpack
 file) into the port's checkpoint layout, which
 ``vnl_tpu_torch.training.checkpoint.restore`` and the ``train.
 restore_checkpoint`` option of ``python -m vnl_tpu_torch.train`` read.
+
+  python tools/export_torch_assets.py --goldens
+
+writes the goldens of ``python -m vnl_tpu_torch.check_numerics`` under
+vnl_tpu_torch/assets/goldens/: rollouts and forward passes of vnl_tpu on
+the CPU (see ``export_goldens``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import io
 import os
 import sys
@@ -413,6 +421,359 @@ def export_checkpoint(src: str, dst: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# goldens of python -m vnl_tpu_torch.check_numerics
+# ---------------------------------------------------------------------------
+
+GOLDENS = os.path.join(ASSETS, "goldens")
+GOLDEN_SEED = 2718
+GOLDEN_ENVS = 16
+GOLDEN_STEPS = 20
+FORWARD_STATES = 128
+# rollout golden -> (scene, scale of the N(0, 1) actions; None: the
+# keeper's deterministic policy drives the env).  0.2 is the scale of
+# tests/test_golden.py _rodent_rollout, 0.3 that of its ant _rollout.
+ROLLOUT_GOLDENS = {"twin_actions": ("twin", 0.2),
+                   "twin_keeper": ("twin", None),
+                   "humanoid_actions": ("humanoid", 0.2),
+                   "ant_actions": ("ant", 0.3)}
+FORWARD_SCENES = ("twin", "humanoid", "ant")
+_SCENE_SEEDS = {"twin": 1, "humanoid": 2, "ant": 3}
+# What vnl_tpu runs here, recorded in every golden: off a TPU its Pallas
+# kernels are off (ops/pallas_position.enabled(), ops/pallas_cg.enabled()),
+# so a control step inverts the mass matrix exactly on its first substep
+# and refines the carried inverses on the other four (envs/base.py:114-125),
+# and the constraint solve is the XLA one.  forward() inverts exactly.
+POSITION_STAGE = ("vnl_tpu on the CPU: the unfused position stage; env "
+                  "steps refine the carried inverses on substeps 2-5")
+
+
+@contextlib.contextmanager
+def committed_scenes():
+    """vnl_tpu's humanoid and ant envs read the module constants
+    _HUMANOID_XML and _ANT_XML (absent reference files): point them at the
+    scenes committed for the port while an env is built."""
+    from vnl_tpu.envs import ant, humanoid
+    old = humanoid._HUMANOID_XML, ant._ANT_XML
+    humanoid._HUMANOID_XML = os.path.join(ASSETS, "dm_humanoid",
+                                          "humanoid.xml")
+    ant._ANT_XML = os.path.join(ASSETS, "gym_ant.xml")
+    try:
+        yield
+    finally:
+        humanoid._HUMANOID_XML, ant._ANT_XML = old
+
+
+@functools.lru_cache(maxsize=None)
+def golden_env(scene: str):
+    """The vnl_tpu env of a golden's scene: RodentTracking on the twin and
+    its clip with the env_args of vnl_tpu_torch/configs/
+    rodent_twin_config.yaml, HumanoidTracking and AntTracking on the
+    committed scenes with their defaults."""
+    if scene != "twin":
+        from vnl_tpu.envs.ant import AntTracking
+        from vnl_tpu.envs.humanoid import HumanoidTracking
+        with committed_scenes():
+            return HumanoidTracking() if scene == "humanoid" else AntTracking()
+    import jax.numpy as jnp
+    import yaml
+    from vnl_tpu.data.reference_clip import ReferenceClip
+    from vnl_tpu.envs.rodent import RodentTracking
+    with open(os.path.join(ROOT, "vnl_tpu_torch", "configs",
+                           "rodent_twin_config.yaml")) as f:
+        env = yaml.safe_load(f)["env"]
+    args = dict(env["env_args"])
+    args["mjcf_path"] = os.path.join(ROOT, args["mjcf_path"])
+    with np.load(os.path.join(ROOT, env["clip_path"])) as z:
+        clip = ReferenceClip(**{k: jnp.asarray(z[k]) for k in z.files})
+    return RodentTracking(clip, **args)
+
+
+def golden_inputs(name: str) -> dict:
+    """The numpy draws of a rollout golden for all GOLDEN_ENVS envs:
+    ``start_frame``, ``noise`` (the twin's scaled qpos noise; the humanoid
+    and ant envs add none) and ``actions`` (not for the keeper).  Every
+    golden of a scene starts from the same states."""
+    scene, scale = ROLLOUT_GOLDENS[name]
+    env = golden_env(scene)
+    n = GOLDEN_ENVS
+    rng = np.random.default_rng((GOLDEN_SEED, _SCENE_SEEDS[scene]))
+    out = {}
+    if scene == "twin":
+        # frames whose steps and reference window stay inside the clip
+        hi = env._clip_length - GOLDEN_STEPS - env._ref_traj_length
+        out["start_frame"] = rng.integers(0, hi, n).astype(np.int32)
+        out["noise"] = (env._reset_noise_scale * rng.standard_normal(
+            (n, env.sys.nq))).astype(np.float32)
+    elif scene == "humanoid":
+        # the range of the JAX draw (envs/humanoid.py:92)
+        hi = env._clip_length - env._episode_length - env._ref_traj_length
+        out["start_frame"] = rng.integers(0, hi, n).astype(np.int32)
+    else:
+        out["start_frame"] = np.zeros(n, np.int32)   # envs/ant.py:89
+    if scale is not None:
+        rng = np.random.default_rng((GOLDEN_SEED, _SCENE_SEEDS[scene], 1))
+        out["actions"] = (scale * rng.standard_normal(
+            (GOLDEN_STEPS, n, env.action_size))).astype(np.float32)
+    return out
+
+
+def _rodent_reset(env, start_frame, noise):
+    """vnl_tpu's RodentTracking.reset (envs/rodent.py:145-190, no
+    min_sub_clip_length) with the start frame and the scaled qpos noise
+    given instead of drawn; ``_check_rodent_reset`` holds it to the
+    env's own reset."""
+    import jax.numpy as jnp
+    from vnl_tpu.envs.base import State
+    info = {"cur_frame": start_frame,
+            "sub_clip_frame": jnp.zeros((), jnp.int32),
+            "sub_clip_length": jnp.asarray(env._sub_clip_length, jnp.int32)}
+    ref = env._get_clip(info)
+    qpos = jnp.concatenate([ref.position[start_frame],
+                            ref.quaternion[start_frame],
+                            ref.joints[start_frame]])
+    qvel = jnp.concatenate([ref.velocity[start_frame],
+                            ref.angular_velocity[start_frame],
+                            ref.joints_velocity[start_frame]])
+    data = env.pipeline_init(qpos + noise, qvel)
+    info["traj"] = env._get_traj(data, start_frame, ref)
+    obs = env._get_obs(data, jnp.zeros(env.sys.nu), info)
+    reward, done, zero = jnp.zeros(3)
+    metrics = {k: zero for k in ("rcom", "rvel", "rtrunk", "rquat", "ract",
+                                 "rapp", "termination_error")}
+    state = State(data, obs, reward, done, metrics, info)
+    info["termination_error"] = env._calculate_termination(state, ref)
+    return state.replace(info=info)
+
+
+def _strong(tree):
+    """The leaves as strongly typed arrays (a weakly typed leaf would make
+    the jitted step compile a second time)."""
+    import jax
+    import jax.numpy as jnp
+    return jax.tree_util.tree_map(lambda x: jnp.asarray(np.asarray(x)),
+                                  tree)
+
+
+def _jax_reset(scene, start_frame, noise):
+    import jax
+    import jax.numpy as jnp
+    env = golden_env(scene)
+    frame = jnp.asarray(start_frame, jnp.int32)
+    if scene != "twin":
+        return _strong(jax.jit(jax.vmap(env.reset_to_frame))(frame))
+    reset = jax.jit(jax.vmap(functools.partial(_rodent_reset, env)))
+    return _strong(reset(frame, jnp.asarray(noise)))
+
+
+def _check_rodent_reset():
+    """``_rodent_reset`` fed the draws of vnl_tpu's own reset (as
+    tests/test_torch_rodent_env.py reads them) equals that reset: qpos and
+    qvel within a float32 rounding (the jitted reset may fuse the noise's
+    scaling into its addition to qpos, one rounding fewer), what the env
+    reads from them within 1e-5, the frame counters exactly."""
+    import jax
+    env = golden_env("twin")
+    keys = jax.random.split(jax.random.PRNGKey(GOLDEN_SEED), 2)
+    want = jax.jit(jax.vmap(env.reset))(keys)
+    frames, noises = [], []
+    for k in keys:
+        rng_frame, rng_noise, _, _ = jax.random.split(k, 4)
+        frames.append(jax.random.randint(
+            rng_frame, (), 0, env._clip_length - env._sub_clip_length
+            - env._ref_traj_length))
+        noises.append(env._reset_noise_scale * jax.random.normal(
+            rng_noise, (env.sys.nq,)))
+    got = _jax_reset("twin", np.stack(frames), np.stack(noises))
+    for k in ("qpos", "qvel"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(got.pipeline_state, k)),
+            np.asarray(getattr(want.pipeline_state, k)), rtol=1e-6,
+            atol=1e-7, err_msg=k)
+    for k, v in dict(want.info, obs=want.obs).items():
+        g = np.asarray(got.obs if k == "obs" else got.info[k])
+        np.testing.assert_allclose(g, np.asarray(v), rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(scene: str):
+    import jax
+    return jax.jit(jax.vmap(golden_env(scene).step))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_keeper():
+    """vnl_tpu's deterministic policy of the keeper
+    (keeper_13fcbe84_policy.npz): ``make_inference_fn(net)(params,
+    deterministic=True)``, jitted.  It still draws the intention latent
+    from its key (models/ppo_networks.py:40-43, models/intention.py:54);
+    ``keeper_latent`` gives that draw."""
+    import jax
+    import jax.numpy as jnp
+    from vnl_tpu import models
+    from vnl_tpu.training import running_statistics as rs
+    with np.load(os.path.join(ASSETS, "keeper_13fcbe84_policy.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    mean, std = flat.pop("normalizer.mean"), flat.pop("normalizer.std")
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(v)
+
+    def widths(stack):
+        return tuple(flat[f"{stack}.proj_{i}.bias"].shape[0]
+                     for i in range(len(tree[stack]) // 2))
+
+    net = models.make_intention_ppo_networks(
+        flat["encoder.proj_0.kernel"].shape[0], mean.shape[0],
+        flat["action_head.bias"].shape[0] // 2,
+        intention_latent_size=flat["post_mean.bias"].shape[0],
+        encoder_layer_sizes=widths("encoder"),
+        decoder_layer_sizes=widths("decoder"),
+        preprocess_observations_fn=rs.normalize)
+    norm = rs.RunningStatisticsState(
+        count=jnp.zeros(()), mean=jnp.asarray(mean),
+        summed_variance=jnp.zeros_like(jnp.asarray(mean)),
+        std=jnp.asarray(std))
+    policy = models.make_inference_fn(net)((norm, {"params": tree}),
+                                           deterministic=True)
+    return jax.jit(policy), flat["post_mean.bias"].shape[0]
+
+
+def keeper_key(t: int):
+    import jax
+    return jax.random.fold_in(jax.random.PRNGKey(GOLDEN_SEED), t)
+
+
+def keeper_latent(t: int, n: int) -> np.ndarray:
+    """The standard-normal intention draw of the keeper's policy at step
+    ``t`` for ``n`` envs: the key's second half, one draw of the latent's
+    shape (models/ppo_networks.py:41, models/intention.py:54)."""
+    import jax
+    import jax.numpy as jnp
+    _, net_rng = jax.random.split(keeper_key(t))
+    return np.asarray(jax.random.normal(net_rng, (n, jax_keeper()[1]),
+                                        jnp.float32))
+
+
+def jax_rollout(name: str, n_envs: int = GOLDEN_ENVS,
+                n_steps: int = GOLDEN_STEPS, ulp: bool = False) -> dict:
+    """The raw vnl_tpu env (no wrappers, no auto-reset; ``env.step`` as
+    tests/test_golden.py _rodent_rollout calls it, vmapped) over the first
+    ``n_envs`` envs and ``n_steps`` control steps of a rollout golden.
+    Arrays (n_steps + 1, n_envs, ...): row 0 is the reset.  ``ulp``:
+    start from the reset's qpos moved up by one float32 ulp."""
+    import jax.numpy as jnp
+    scene, scale = ROLLOUT_GOLDENS[name]
+    inp = golden_inputs(name)
+    noise = inp.get("noise")
+    state = _jax_reset(scene, inp["start_frame"][:n_envs],
+                       None if noise is None else noise[:n_envs])
+    if ulp:
+        qpos = np.nextafter(np.asarray(state.pipeline_state.qpos),
+                            np.float32(np.inf))
+        state = state.replace(pipeline_state=state.pipeline_state.replace(
+            qpos=jnp.asarray(qpos)))
+    step = _jax_step(scene)
+    rec = {k: [] for k in ("qpos", "qvel", "obs", "reward", "done")}
+    actions, latent = [], []
+
+    def record(s):
+        for k in ("qpos", "qvel"):
+            rec[k].append(np.asarray(getattr(s.pipeline_state, k)))
+        for k in ("obs", "reward", "done"):
+            rec[k].append(np.asarray(getattr(s, k)))
+
+    record(state)
+    for t in range(n_steps):
+        if scale is None:
+            a, _ = jax_keeper()[0](state.info["traj"], state.obs,
+                                   keeper_key(t))
+            actions.append(np.asarray(a))
+            latent.append(keeper_latent(t, n_envs))
+        else:
+            a = inp["actions"][t, :n_envs]
+        state = _strong(step(state, jnp.asarray(a)))
+        record(state)
+    out = {k: np.stack(v).astype(np.float32) for k, v in rec.items()}
+    if scale is None:
+        out["actions"] = np.stack(actions).astype(np.float32)
+        out["latent_noise"] = np.stack(latent).astype(np.float32)
+    return out
+
+
+def rollout_golden(name: str) -> dict:
+    """A rollout golden: its inputs, the rollout and ``spread`` (n_steps +
+    1,), each step's largest |qpos - qpos'| over the envs, qpos' from the
+    same rollout started one float32 ulp up."""
+    out = dict(golden_inputs(name), **jax_rollout(name))
+    moved = jax_rollout(name, ulp=True)
+    out["spread"] = np.abs(moved["qpos"] - out["qpos"]).max(
+        axis=(1, 2)).astype(np.float32)
+    out["scene"] = np.asarray(ROLLOUT_GOLDENS[name][0])
+    out["position_stage"] = np.asarray(POSITION_STAGE)
+    return out
+
+
+def forward_inputs(scene: str, n: int = FORWARD_STATES):
+    """(qpos, qvel) float32 as tools/check_tpu_numerics.py:64-66 makes
+    them: qpos0 with the root 5 mm down and the joints moved by 0.05 N(0,
+    1), qvel 0.3 N(0, 1); numpy draws."""
+    m = golden_env(scene).sys
+    rng = np.random.default_rng((GOLDEN_SEED, _SCENE_SEEDS[scene], 2))
+    qpos = np.tile(np.asarray(m.qpos0, np.float32), (n, 1))
+    qpos[:, 2] -= np.float32(0.005)
+    qpos[:, 7:] += (0.05 * rng.standard_normal((n, m.nq - 7))).astype(
+        np.float32)
+    qvel = (0.3 * rng.standard_normal((n, m.nv))).astype(np.float32)
+    return qpos, qvel
+
+
+def jax_forward(scene: str, qpos, qvel) -> dict:
+    """qacc and qfrc_constraint of vnl_tpu.physics.forward on a batch."""
+    import importlib
+    import jax
+    import jax.numpy as jnp
+    physics = importlib.import_module("vnl_tpu.physics")
+    m = golden_env(scene).sys
+    d = jax.vmap(lambda q, v: physics.make_data(m, qpos=q, qvel=v))(
+        jnp.asarray(qpos), jnp.asarray(qvel))
+    d = jax.jit(jax.vmap(lambda x: physics.forward(m, x)))(d)
+    return {k: np.asarray(getattr(d, k), np.float32)
+            for k in ("qacc", "qfrc_constraint")}
+
+
+def forward_golden(scene: str) -> dict:
+    qpos, qvel = forward_inputs(scene)
+    return dict(qpos=qpos, qvel=qvel, **jax_forward(scene, qpos, qvel),
+                scene=np.asarray(scene),
+                position_stage=np.asarray(POSITION_STAGE))
+
+
+def export_goldens():
+    """vnl_tpu_torch/assets/goldens/<name>.npz: the four rollout goldens
+    (GOLDEN_ENVS envs, GOLDEN_STEPS control steps) and forward_<scene> for
+    the three scenes (FORWARD_STATES states), float32, from numpy seeds."""
+    os.makedirs(GOLDENS, exist_ok=True)
+    _check_rodent_reset()
+    files = {name: rollout_golden(name) for name in ROLLOUT_GOLDENS}
+    files.update({f"forward_{s}": forward_golden(s) for s in FORWARD_SCENES})
+    total = 0
+    for name, arrays in files.items():
+        path = os.path.join(GOLDENS, f"{name}.npz")
+        np.savez_compressed(path, **arrays)
+        total += os.path.getsize(path)
+        extra = (" spread " + " ".join(f"{x:.1e}" for x in arrays["spread"])
+                 if "spread" in arrays else "")
+        print(f"{name}: {os.path.getsize(path)} bytes{extra}")
+    print(f"goldens: {total} bytes")
+    return 0
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     import jax
@@ -422,6 +783,8 @@ def main(argv=None):
             raise SystemExit("usage: export_torch_assets.py --checkpoint "
                              "<jax checkpoint> <out.npz>")
         return export_checkpoint(argv[1], argv[2])
+    if argv[:1] == ["--goldens"]:
+        return export_goldens()
     from vnl_tpu import mjcf
     from vnl_tpu.data.pipeline import process_recording
 
