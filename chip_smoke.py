@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero:
      row of its own;
   4. the slice: RodentTracking (twin + clip) reset for 1024 envs and a
      20-control-step generate_unroll (100 physics substeps) with the keeper
-     policy, sampling from a seeded generator; A and B must each launch at
-     least 100 times in it, and every qpos, qvel and reward must be finite;
+     policy, sampling from a seeded generator, each control step one
+     replay of its CUDA graph (training.ActorStepGraph); A and B must each
+     launch at least 100 times in it (a replay counts the launches its
+     capture recorded), and every qpos, qvel and reward must be finite;
   5. kernel C (SPD sweep inverse) against its plain version on the
      (2, 1024, 73, 73) stack [qM, qM + h diag(B)] of 1024 twin states
      (the register route, tile (10, 3), which must not spill) and on SPD
@@ -33,7 +35,9 @@ Phases, in order; any failure exits non-zero:
      time, its bound and torch.linalg.inv's time at the twin's pair;
   6. training at full width: train(...) with the arguments of
      vnl_tpu_torch/bench.py (1024 envs, networks (1024, 1024), a shortened
-     episode) for four training steps with the fused position stage
+     episode; the control step and the SGD update replayed as CUDA graphs,
+     as in every train(...) and command line below) for four training
+     steps with the fused position stage
      (kernel A) and two with the unfused one (kernel C), an evaluation
      after every interval; losses must be finite, parameters must move,
      and the launch counts must be those of the chosen stage;
@@ -68,8 +72,9 @@ Phases, in order; any failure exits non-zero:
      across two launches; one line with the stage split of A and B at
      these shapes (and, with --old, both trees' times); HumanoidTracking and
      HumanoidStanding, wrapped for training, reset for 1024 envs and
-     driven 20 control steps by a freshly initialised intention policy at
-     the config's widths (value (1024, 1024)), A and B at least 100
+     driven 20 control steps (graphed, as in 4) by a freshly initialised
+     intention policy at the config's widths (value (1024, 1024)), A and
+     B at least 100
      launches each, every qpos, qvel, reward and observation finite;
      then `python -m vnl_tpu_torch.train`'s main() with
      vnl_tpu_torch/configs/humanoid_config.yaml at the config's own sizes
@@ -125,8 +130,9 @@ Phases, in order; any failure exits non-zero:
      envs, two clips of 125 frames) for one training step, with finite
      losses and both clips drawn; a {"checkpoint_tools": ...} line;
  13. the stepping bench: vnl_tpu_torch.bench.run_stepping (the twin env
-     stepped raw with random actions, no policy) at 1024 envs, 20 control
-     steps a sample, 2 warm-up calls and 3 samples; A and B at least 100
+     stepped raw with random actions, no policy; each step with its draw
+     one replay of its envs.StateGraph) at 1024 envs, 20 control steps a
+     sample, 2 warm-up calls and 3 samples; A and B at least 100
      launches each in every sample, every qpos, qvel and reward finite;
      its JSON line ({"stepping": ...});
  14. the device-numerics check: vnl_tpu_torch.check_numerics at 1024 envs
@@ -147,7 +153,25 @@ Phases, in order; any failure exits non-zero:
      humanoid's unfused pair (2, 1024, 27, 27; the one-warp route
      sweep_warp_kernel<32>, which only this phase runs) against its plain
      version as in 5, timed with torch.linalg.inv; a {"numerics": ...}
-     line.
+     line (this phase runs eagerly);
+ 15. CUDA graphs against the eager loops, from the same seeds: the twin's
+     20-step keeper rollout at 1024 envs, fused and unfused, and the 20-step
+     rollouts of HumanoidTracking and AntTracking as in 8 and 9, each
+     eager and graphed, every tensor of the final state and of the rollout
+     (qpos, qvel, reward, action, ...) equal bit for bit; train(...) at
+     the bench's hyperparameters (fused, episode 30) for two training
+     steps, eager and graphed, every final parameter and buffer and every
+     loss metric equal bit for bit; the stepping bench eager and graphed,
+     final states equal bit for bit; the launch counts of each pair equal;
+     one more replay of each rollout's control-step graph traced with
+     torch.profiler, its kernels A, B and C equal to the launches the
+     capture counts a replay (the counts a replay adds are those the
+     device ran);
+     then vnl_tpu_torch.profile_rollout and profile_train (fused; the
+     unfused one untraced) eager and graphed: control-step and SGD-update
+     wall ms, training env-steps/s, device busy shares, the host's
+     launches a control step and an update; every capture's time, node
+     count and pool bytes; a {"graphs": ...} line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
 twin's A, B and C; B's widest route on the padded twin; A and B at the
@@ -409,26 +433,80 @@ def phase_kernel_b_widest(m, gen):
     return row, dict(errs, active_contacts=active)
 
 
-def phase_rollout(device):
-    from vnl_tpu_torch import compat
-    from vnl_tpu_torch.envs import make_twin_env
-    from vnl_tpu_torch.models import make_inference_fn
+def unroll(env, make_policy, graphed, again=False):
+    """``env`` reset for BATCH envs from a generator seeded with SEED and
+    driven UNROLL control steps by the policy ``make_policy(state)``
+    (sampling from that generator), eagerly or replayed as the
+    control-step graph (training.ActorStepGraph); with ``again`` a second
+    unroll of the graph is timed after it (its steady state; the returned
+    state is a copy taken before).  Returns dict(counts: the launches of
+    the reset and the first unroll, state, rollout, reset_s, unroll_s,
+    again_s, graph: the capture's report, and with ``again`` profiled:
+    ``profiled_launches`` of one more replay)."""
     from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
-    from vnl_tpu_torch.training import generate_unroll
-    env = make_twin_env(device=device)
-    policy_net = compat.policy_from_numpy(compat.KEEPER_POLICY, device=device)
-    policy = make_inference_fn(policy_net)(deterministic=False)
-    gen = torch.Generator(device=device).manual_seed(SEED)
+    from vnl_tpu_torch.training import ActorStepGraph, generate_unroll
+    from vnl_tpu_torch.utils import graphs
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
     state = env.reset(BATCH, generator=gen)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    state, rollout = generate_unroll(env, state, policy, gen, UNROLL)
+    policy = make_policy(state)
+    step = ActorStepGraph(env, policy, gen) if graphed else None
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    counts = dict(launch_counts)
+    state, rollout = generate_unroll(env, state, policy, gen, UNROLL,
+                                     step=step)
+    torch.cuda.synchronize()
+    out = dict(counts=dict(launch_counts), state=state, rollout=rollout,
+               reset_s=t1 - t0, unroll_s=time.perf_counter() - t2,
+               again_s=None, graph=step.report if step else None)
+    if again and graphed:
+        out["state"] = graphs.clone(state)
+        t0 = time.perf_counter()
+        generate_unroll(env, state, policy, gen, UNROLL, step=step)
+        torch.cuda.synchronize()
+        out["again_s"] = time.perf_counter() - t0
+        out["profiled"] = profiled_launches(
+            lambda: generate_unroll(env, state, policy, gen, 1, step=step))
+    return out
+
+
+# the launch counters of kernels A, B and C, and the group by which
+# profile_rollout.device_groups names each kernel's routes
+COUNTED_GROUPS = (("position", "kernel A (position)"),
+                  ("cg", "kernel B (cg)"), ("sweep", "kernel C (sweep)"))
+
+
+def profiled_launches(run) -> dict:
+    """The launches of kernels A, B and C on the device while ``run()``
+    runs, by launch counter, counted in a torch.profiler trace of it: for
+    a graph replay, the kernels that really ran, beside the counts that
+    ops.ReplayCounts adds for it from its capture."""
+    from torch.profiler import ProfilerActivity, profile
+    from vnl_tpu_torch.profile_rollout import device_groups
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    _, launches = device_groups(prof)
+    return {counter: launches[group] for counter, group in COUNTED_GROUPS}
+
+
+def keeper_policy(state):
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.models import make_inference_fn
+    return make_inference_fn(compat.policy_from_numpy(
+        compat.KEEPER_POLICY, device="cuda"))(deterministic=False)
+
+
+def phase_rollout(device):
+    from vnl_tpu_torch.envs import make_twin_env
+    env = make_twin_env(device=device)
+    run = unroll(env, keeper_policy, graphed=True)
+    counts, state, rollout = run["counts"], run["state"], run["rollout"]
     d = state.pipeline_state
     finite = all(bool(torch.isfinite(x).all())
                  for x in (d.qpos, d.qvel, rollout.reward,
@@ -445,8 +523,8 @@ def phase_rollout(device):
             raise AssertionError(f"kernel {k} launched {counts.get(k, 0)} "
                                  f"times in the rollout, expected >= {need}")
     return counts, dict(
-        reset_s=t1 - t0, unroll_s=t2 - t1,
-        env_steps_per_s=BATCH * UNROLL / (t2 - t1),
+        reset_s=run["reset_s"], unroll_s=run["unroll_s"],
+        env_steps_per_s=BATCH * UNROLL / run["unroll_s"], graph=run["graph"],
         mean_reward=float(rollout.reward.mean()),
         done_share=float(rollout.discount.eq(0).float().mean()),
         root_z_mean=float(d.qpos[:, 2].mean()))
@@ -855,36 +933,33 @@ CONFIG_NETS = dict(intention_latent_size=64, encoder_layer_sizes=(256, 128),
                    value_hidden_layer_sizes=(1024, 1024))  # train_config.yaml
 
 
+def intention_policy(env):
+    """make_policy for ``unroll``: a freshly initialised intention policy
+    at the config's widths (the same weights every call)."""
+    from vnl_tpu_torch import models
+
+    def make(state):
+        net = models.make_intention_ppo_networks(
+            state.info["traj"].shape[-1], state.obs.shape[-1],
+            env.action_size, generator=torch.Generator().manual_seed(SEED),
+            device="cuda", **CONFIG_NETS)
+        return models.make_inference_fn(net)(deterministic=False)
+
+    return make
+
+
 def env_rollout(env, device, need, sizes):
     """``env`` wrapped for training, reset for BATCH envs and driven for
     UNROLL control steps by a freshly initialised intention policy at the
-    config's widths, sampling from a seeded generator; returns (launch
-    counts of reset and unroll, report).  Requires every kernel in
-    ``need`` ({name: least launches}) and finite qpos, qvel, reward and
-    observations of the expected (obs, traj) ``sizes``."""
-    from vnl_tpu_torch import models
+    config's widths, sampling from a seeded generator, replayed as the
+    control-step graph; returns (launch counts of reset and unroll,
+    report).  Requires every kernel in ``need`` ({name: least launches})
+    and finite qpos, qvel, reward and observations of the expected (obs,
+    traj) ``sizes``."""
     from vnl_tpu_torch.envs import wrap_for_training
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
-    from vnl_tpu_torch.training import generate_unroll
     wenv = wrap_for_training(env, episode_length=150)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    state = wenv.reset(BATCH, generator=gen)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    net = models.make_intention_ppo_networks(
-        state.info["traj"].shape[-1], state.obs.shape[-1], env.action_size,
-        generator=torch.Generator().manual_seed(SEED), device=device,
-        **CONFIG_NETS)
-    policy = models.make_inference_fn(net)(deterministic=False)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    state, rollout = generate_unroll(wenv, state, policy, gen, UNROLL)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    counts = dict(launch_counts)
+    run = unroll(wenv, intention_policy(env), graphed=True)
+    counts, state, rollout = run["counts"], run["state"], run["rollout"]
     d = state.pipeline_state
     if not all(bool(torch.isfinite(x).all()) for x in
                (d.qpos, d.qvel, rollout.reward, rollout.observation)):
@@ -899,12 +974,13 @@ def env_rollout(env, device, need, sizes):
                                  f"{counts.get(k, 0)} times, expected >= "
                                  f"{least}")
     return counts, dict(
-        reset_s=t1 - t0, unroll_s=t3 - t2,
-        env_steps_per_s=BATCH * UNROLL / (t3 - t2),
-        ms_per_control_step=1e3 * (t3 - t2) / UNROLL,
+        reset_s=run["reset_s"], unroll_s=run["unroll_s"],
+        env_steps_per_s=BATCH * UNROLL / run["unroll_s"],
+        ms_per_control_step=1e3 * run["unroll_s"] / UNROLL,
         mean_reward=float(rollout.reward.mean()),
         done_share=float(rollout.discount.eq(0).float().mean()),
-        root_z_mean=float(d.qpos[:, 2].mean()), launches=counts)
+        root_z_mean=float(d.qpos[:, 2].mean()), launches=counts,
+        graph=run["graph"])
 
 
 def add_counts(*counts):
@@ -1622,6 +1698,176 @@ def phase_numerics(device, out_dir=""):
     return counts, row, summary
 
 
+def differing(a, b) -> list:
+    """The paths of two nests' tensors that are not equal bit for bit
+    (or whose structures differ)."""
+    from vnl_tpu_torch.utils import graphs
+    la, lb = list(graphs.named_leaves(a)), list(graphs.named_leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["<structure>"]
+
+    def bits(t):
+        return t.reshape(-1).contiguous().view(torch.uint8)
+
+    return [p for (p, x), (_, y) in zip(la, lb)
+            if x.dtype != y.dtype or x.shape != y.shape or
+            not torch.equal(bits(x), bits(y))]
+
+
+def rollout_pair(tag, env, make_policy):
+    """``unroll`` eagerly and graphed from the same seed: every tensor of
+    the final state and the rollout (qpos, qvel, reward, action, ...)
+    equal bit for bit, and the launch counts equal; the kernels A, B and
+    C that a profiled replay ran on the device equal the launches its
+    capture counts a replay.  Returns (the graphed run's launch counts,
+    report)."""
+    from vnl_tpu_torch.utils import graphs
+    eager = unroll(env, make_policy, graphed=False)
+    graphed = unroll(env, make_policy, graphed=True, again=True)
+    diff = differing((eager["state"], eager["rollout"]),
+                     (graphed["state"], graphed["rollout"]))
+    if diff or eager["counts"] != graphed["counts"]:
+        raise AssertionError(f"{tag}: graphed differs from eager in "
+                             f"{diff[:8]} ({len(diff)}), launches "
+                             f"{eager['counts']} / {graphed['counts']}")
+    per_replay = {counter: graphed["graph"]["launches_per_replay"].get(
+        counter, 0) for counter, _ in COUNTED_GROUPS}
+    if graphed["profiled"] != per_replay or not any(per_replay.values()):
+        raise AssertionError(f"{tag}: a profiled control-step replay ran "
+                             f"{graphed['profiled']} of kernels A, B, C; "
+                             f"its capture counts {per_replay}")
+    return graphed["counts"], dict(
+        compared=len(list(graphs.named_leaves(
+            (eager["state"], eager["rollout"])))),
+        launches=graphed["counts"],
+        profiled_launches_per_replay=graphed["profiled"],
+        eager_ms_per_control_step=1e3 * eager["unroll_s"] / UNROLL,
+        graphed_first_unroll_ms_per_control_step=(
+            1e3 * graphed["unroll_s"] / UNROLL),
+        graphed_ms_per_control_step=1e3 * graphed["again_s"] / UNROLL,
+        graph=graphed["graph"])
+
+
+def train_pair(device):
+    """train(...) at the bench's hyperparameters (fused stage, episode
+    EVAL_EPISODE) for one interval of two training steps, eagerly and with
+    CUDA graphs: every final parameter and buffer of the networks (the
+    normaliser's mean and std among them) and every loss metric equal bit
+    for bit, and the launch counts equal.  Returns (the graphed run's
+    launch counts, report)."""
+    from vnl_tpu_torch import bench, models
+    from vnl_tpu_torch.envs import make_twin_env
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from vnl_tpu_torch.training import train
+    kw = dict(bench.TRAIN_KW, episode_length=EVAL_EPISODE)
+    per_step = kw["batch_size"] * kw["unroll_length"] * kw["num_minibatches"]
+    runs = {}
+    for graphed in (False, True):
+        made, seen = {}, []
+
+        def factory(*a, **fkw):
+            made["net"] = models.make_intention_ppo_networks(*a, **fkw)
+            return made["net"]
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        train(make_twin_env(device=device), num_timesteps=2 * per_step,
+              num_evals=1, network_factory=factory, device=device,
+              cuda_graphs=graphed,
+              progress_fn=lambda step, m: seen.append(m), **kw)
+        torch.cuda.synchronize()
+        runs[graphed] = dict(
+            params=made["net"].state_dict(), metrics=seen[-1],
+            counts=dict(launch_counts), s=time.perf_counter() - t0)
+    eager, graphed = runs[False], runs[True]
+    diff = differing(eager["params"], graphed["params"])
+    losses = [k for k in eager["metrics"] if k.startswith("training/")
+              and not k.endswith(("sps", "walltime", "_s_per_step"))]
+    diff += [k for k in losses
+             if eager["metrics"][k] != graphed["metrics"][k]]
+    if diff or eager["counts"] != graphed["counts"]:
+        raise AssertionError(f"training: graphed differs from eager in "
+                             f"{diff[:8]} ({len(diff)}), launches "
+                             f"{eager['counts']} / {graphed['counts']}")
+    return graphed["counts"], dict(
+        compared=len(eager["params"]) + len(losses),
+        launches=graphed["counts"],
+        **{f"{tag}_{k}": runs[g]["metrics"][f"training/{k}"]
+           for tag, g in (("eager", False), ("graphed", True))
+           for k in ("sps", "rollout_s_per_step", "sgd_s_per_step")},
+        **{f"{tag}_run_s": runs[g]["s"]
+           for tag, g in (("eager", False), ("graphed", True))})
+
+
+def phase_graphs(device):
+    """Phase 15: the port's CUDA graphs against its eager loops.  Returns
+    (launch counts of the graphed runs by scene, report)."""
+    from vnl_tpu_torch import bench
+    from vnl_tpu_torch.envs import (AntTracking, HumanoidTracking,
+                                    make_twin_env, wrap_for_training)
+    from vnl_tpu_torch.profile_rollout import profile_rollout
+    from vnl_tpu_torch.profile_train import profile_train
+    from vnl_tpu_torch.utils import graphs
+    t_phase = time.perf_counter()
+    rep, counts = {}, {}
+    for fused in (True, False):
+        tag = "twin_" + ("fused" if fused else "unfused")
+        counts[tag], rep[tag] = rollout_pair(
+            tag, make_twin_env(device=device, fused_position=fused),
+            keeper_policy)
+    for tag, env in (("humanoid", HumanoidTracking(device=device)),
+                     ("ant", AntTracking(device=device))):
+        counts[tag], rep[tag] = rollout_pair(
+            tag, wrap_for_training(env, episode_length=150),
+            intention_policy(env))
+    counts["training"], rep["training"] = train_pair(device)
+
+    steps = {}
+    for graphed in (False, True):
+        steps[graphed] = bench.run_stepping(
+            device, batch=BATCH, n_steps=UNROLL, samples=STEPPING_SAMPLES,
+            warmup=2, cuda_graphs=graphed)
+    diff = differing(steps[False]["state"], steps[True]["state"])
+    if diff or steps[False]["launches_per_sample"] != \
+            steps[True]["launches_per_sample"]:
+        raise AssertionError(f"stepping: graphed differs from eager in "
+                             f"{diff[:8]}, launches "
+                             f"{steps[False]['launches_per_sample']} / "
+                             f"{steps[True]['launches_per_sample']}")
+    counts["stepping"] = add_counts(*steps[True]["launches_per_sample"])
+    rep["stepping"] = {
+        f"{tag}_{k}": steps[g][k] for tag, g in (("eager", False),
+                                                 ("graphed", True))
+        for k in ("value", "median", "sample_env_steps_per_s")}
+    rep["stepping"]["graph"] = steps[True]["graph"]
+
+    rep["profile_rollout"] = {tag: profile_rollout(g) for tag, g in (
+        ("eager", False), ("graphed", True))}
+    rep["profile_train_fused"] = {
+        tag: profile_train(True, g, evaluation=False)
+        for tag, g in (("eager", False), ("graphed", True))}
+    rep["profile_train_unfused"] = {
+        tag: profile_train(False, g, evaluation=False, trace=False)
+        for tag, g in (("eager", False), ("graphed", True))}
+    for key in ("profile_train_fused", "profile_train_unfused"):
+        for r in rep[key].values():
+            r.pop("name_and_power_limit", None)
+    rep["captures"] = {
+        "count": len(graphs.REPORTS),
+        "by_name": {name: {k: [g[k] for g in graphs.REPORTS
+                               if g["name"] == name]
+                           for k in ("capture_s", "instantiate_s", "nodes",
+                                     "pool_bytes")}
+                    for name in sorted({g["name"] for g in graphs.REPORTS})}}
+    rep["name_and_power_limit"] = bench.gpu_name_and_power_limit()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"graphs": rep}), flush=True)
+    return {"twin": add_counts(counts["twin_fused"], counts["twin_unfused"],
+                               counts["training"], counts["stepping"]),
+            "humanoid": counts["humanoid"], "ant": counts["ant"]}, rep
+
+
 def compare_trees(old: str) -> dict:
     """tools/compare_kernels.py --old ``old``: {key: {"old": ms, "new":
     ms}} of both trees' kernels, timed in turns."""
@@ -1689,16 +1935,21 @@ def main() -> int:
     counts_num, row_ch, info["numerics"] = phase_numerics(
         device, os.path.dirname(os.path.abspath(args.out)) if args.out
         else "")
+    counts_graphs, info["graphs"] = phase_graphs(device)
     twin_counts = add_counts(counts, counts_fused, counts_unfused,
                              *counts_cli, counts_dp, counts_tools,
-                             counts_step, counts_num["twin"])
-    counts_h = add_counts(counts_h, counts_num["humanoid"])
-    counts_ant = add_counts(counts_ant, counts_num["ant"])
+                             counts_step, counts_num["twin"],
+                             counts_graphs["twin"])
+    counts_h = add_counts(counts_h, counts_num["humanoid"],
+                          counts_graphs["humanoid"])
+    counts_ant = add_counts(counts_ant, counts_num["ant"],
+                            counts_graphs["ant"])
     kernels = [row_a, row_b, row_bw, row_c] + rows_h + rows_ant + [row_ch]
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
-        # phases 4, 6, 7, 11, 12, 13, 14; the humanoid's: 8, 14, where C's
-        # n 27 pair runs only in 14; the ant's: 9, 14), each path counted
+        # phases 4, 6, 7, 11, 12, 13, 14, 15; the humanoid's: 8, 14, 15,
+        # where C's n 27 pair runs only in 14; the ant's: 9, 14, 15; phase
+        # 15 counts its graphed runs), each path counted
         # from zero on its own; B's widest route is on none, so its count
         # is summed over all of them and must be 0
         paths = (counts_h if row["name"].endswith("humanoid") else

@@ -502,3 +502,86 @@ def test_one_rank_nccl_training_is_the_plain_run(model):
     assert sorted(plain) == sorted(grouped)
     for k in plain:
         assert plain[k].numpy().tobytes() == grouped[k].numpy().tobytes(), k
+
+
+def _bits(t):
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+def _assert_nests_equal(got, want):
+    from vnl_tpu_torch.utils import graphs
+    got, want = list(graphs.named_leaves(got)), list(graphs.named_leaves(want))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        assert torch.equal(_bits(g), _bits(w)), path
+
+
+@pytest.mark.cuda
+def test_control_step_graph_is_the_eager_step(model):
+    """Four control steps of the twin (wrapped for training, keeper policy
+    sampling) replayed as the control-step graph against the same steps
+    eagerly, from the same seed: the final state and every transition
+    bit for bit, and the same launch counts."""
+    from vnl_tpu_torch.envs import make_twin_env, wrap_for_training
+    from vnl_tpu_torch.models import make_inference_fn
+    from vnl_tpu_torch.training import ActorStepGraph, generate_unroll
+    from vnl_tpu_torch.utils import graphs
+    env = wrap_for_training(make_twin_env(device="cuda"), episode_length=3)
+    policy = make_inference_fn(compat.policy_from_numpy(
+        compat.KEEPER_POLICY, device="cuda"))(deterministic=False)
+    runs = []
+    for graphed in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        state = env.reset(B, generator=gen)
+        step = ActorStepGraph(env, policy, gen, ("truncation", "traj")) \
+            if graphed else None
+        launch_counts.clear()
+        state, roll = generate_unroll(env, state, policy, gen, 4,
+                                      ("truncation", "traj"), step=step)
+        runs.append((graphs.clone(state), roll, dict(launch_counts)))
+    _assert_nests_equal(runs[1][:2], runs[0][:2])
+    assert runs[1][2] == runs[0][2] and runs[0][2]["position"] == 20
+
+
+@pytest.mark.cuda
+def test_sgd_update_graph_is_the_eager_update(model):
+    """Three PPO updates on minibatches of a twin rollout, replayed as the
+    SGD-update graph against the eager updates, from the same weights and
+    generator seed: losses, stats and parameters bit for bit."""
+    import functools
+
+    from vnl_tpu_torch import models
+    from vnl_tpu_torch.envs import make_twin_env, wrap_for_training
+    from vnl_tpu_torch.training import (compute_ppo_intention_loss,
+                                        gradients)
+    from vnl_tpu_torch.training.acting import tree_map
+    from vnl_tpu_torch.training.train import collect_rollouts
+    env = wrap_for_training(make_twin_env(device="cuda"), episode_length=8)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state = env.reset(B, generator=gen)
+
+    def make_net():
+        return models.make_intention_ppo_networks(
+            state.info["traj"].shape[-1], state.obs.shape[-1],
+            env.action_size, intention_latent_size=8,
+            encoder_layer_sizes=(64,), decoder_layer_sizes=(64,),
+            value_hidden_layer_sizes=(64,),
+            generator=torch.Generator().manual_seed(6), device="cuda")
+
+    policy = models.make_inference_fn(make_net())(deterministic=False)
+    _, batch = collect_rollouts(env, state, policy, gen, 5, 1)
+    runs = []
+    for graphed in (False, True):
+        net = make_net()
+        loss_gen = torch.Generator(device="cuda").manual_seed(7)
+        update = gradients.gradient_update_fn(
+            functools.partial(compute_ppo_intention_loss, net,
+                              generator=loss_gen),
+            gradients.make_adam(net.parameters(), 1e-3), has_aux=True,
+            cuda_graph=graphed, generators=(loss_gen,))
+        out = [update(tree_map(lambda x: x[16 * k:16 * k + 16], batch))
+               for k in range(3)]
+        runs.append(([(loss.detach(), stats) for loss, stats in out],
+                     net.state_dict()))
+    _assert_nests_equal(runs[1], runs[0])

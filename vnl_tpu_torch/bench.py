@@ -16,13 +16,20 @@ actions 0.3 N(0, 1), no policy, no learner and no auto-reset, five
 samples of 20 control steps after two warm-up calls, as the JAX bench's
 stepping mode (``jax.vmap(env.step)`` in a scan) does.
 
+Both replay CUDA graphs, as the JAX bench runs compiled programs: the
+training mode its control step and SGD update (``train``'s
+``cuda_graphs``), the stepping mode ``env.step`` with its action draw
+(an ``envs.StateGraph``).  ``--eager`` runs the same work without graphs, one
+launch from the host for every kernel.
+
 Both print one JSON line with the JAX bench's keys (``metric``,
 ``value``: the best sample, ``unit``, ``mode``, ``median``: of the last
-half of the samples, ``samples``: their count), the card's name and its
-power limit, beside the mode's own keys:
+half of the samples, ``samples``: their count), ``cuda_graphs``, the
+card's name and its power limit, beside the mode's own keys:
 
   python3 -m vnl_tpu_torch.bench [--mode train|stepping] [--envs N]
                                  [--fused-position 0|1] [--steps N]
+                                 [--eager]
 
 Data-parallel over N GPUs of one host, one process each, ``--envs`` envs
 (1024 by default) and a batch of envs / 32 per GPU (rank 0 prints the
@@ -43,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -79,11 +87,13 @@ def run(fused_position: bool, steps: int, device="cuda", env=None,
     training steps each (``overrides`` replace arguments of ``train``;
     ``env`` the twin env, for the CPU tests); returns the measured
     interval's numbers, the training env-steps/s of both intervals as the
-    samples, and the kernel launches counted since the caller last reset
-    them."""
+    samples, the kernel launches counted since the caller last reset
+    them and the reports of the run's graph captures (``cuda_graphs``
+    among ``overrides``: train's; by default graphs on a CUDA device)."""
     from vnl_tpu_torch.envs import make_twin_env
     from vnl_tpu_torch.ops import launch_counts
     from vnl_tpu_torch.training import train
+    from vnl_tpu_torch.utils import graphs
 
     if env is None:
         env = make_twin_env(device=device, fused_position=fused_position)
@@ -91,6 +101,9 @@ def run(fused_position: bool, steps: int, device="cuda", env=None,
     per_step = (kw["batch_size"] * kw["unroll_length"]
                 * kw["num_minibatches"])
     seen = []
+    captures = len(graphs.REPORTS)
+    if kw.get("cuda_graphs") is None:
+        kw["cuda_graphs"] = torch.device(device).type == "cuda"
     # three evaluations = two intervals: the first warms up
     train(env, num_timesteps=2 * steps * per_step, num_evals=3,
           progress_fn=lambda step, m: seen.append((step, m)),
@@ -101,6 +114,7 @@ def run(fused_position: bool, steps: int, device="cuda", env=None,
     sps = [m["training/sps"] for _, m in seen if "training/sps" in m]
     return {
         **summary("train", sps),
+        "cuda_graphs": kw["cuda_graphs"],
         "fused_position": fused_position,
         "training_steps": steps,
         "env_steps": step,
@@ -111,13 +125,15 @@ def run(fused_position: bool, steps: int, device="cuda", env=None,
         "eval_s": last["eval/epoch_eval_time"],
         "metrics": {k: float(v) for k, v in last.items()},
         "launches": {k: launch_counts.get(k, 0) for k in KERNELS},
+        "graphs": graphs.REPORTS[captures:],
     }
 
 
 def run_stepping(device="cuda", batch: int = NUM_ENVS, n_steps: int = 20,
                  samples: int = 5, warmup: int = 2,
                  fused_position: bool = True, seed: int = 0, env=None,
-                 state=None, actions=None) -> dict:
+                 state=None, actions=None,
+                 cuda_graphs: Optional[bool] = None) -> dict:
     """Raw env-steps/s of ``batch`` twin envs (bench.py:138-178): reset
     from a generator seeded with ``seed``, then ``warmup`` calls and
     ``samples`` timed calls of ``n_steps`` ``env.step`` each, with actions
@@ -129,18 +145,32 @@ def run_stepping(device="cuda", batch: int = NUM_ENVS, n_steps: int = 20,
 
     ``env``, ``state`` and ``actions`` (n_steps, batch, action_size),
     used by every call, replace the twin env, its reset and the random
-    actions (the CPU tests).  Returns the summary, the env-steps/s of each
-    sample, the launches of kernels A, B and C in each sample and the
-    final ``state``."""
-    from vnl_tpu_torch.envs import make_twin_env
+    actions (the CPU tests, eager only).  ``cuda_graphs`` (None: on a
+    CUDA device) replays each step with its draw as one CUDA graph
+    (``envs.StateGraph``); True on the CPU raises.  Returns the summary,
+    the env-steps/s of each sample, the launches of kernels A, B and C in
+    each sample, the capture's report and the final ``state``."""
+    from vnl_tpu_torch.envs import StateGraph, make_twin_env
     from vnl_tpu_torch.ops import launch_counts
     from vnl_tpu_torch.parallel import mesh
+    cuda = torch.device(device).type == "cuda"
+    if cuda_graphs is None:
+        cuda_graphs = cuda
+    if cuda_graphs and (not cuda or actions is not None):
+        raise ValueError("the env-step graph needs a CUDA device and draws "
+                         "its own actions; run eagerly (cuda_graphs=False)")
     if env is None:
         env = make_twin_env(device=device, fused_position=fused_position)
     gen = torch.Generator(device=device).manual_seed(seed)
     if state is None:
         state = env.reset(batch, generator=gen)
-    cuda = torch.device(device).type == "cuda"
+
+    def draw_and_step(state):
+        a = 0.3 * torch.randn(batch, env.action_size, generator=gen,
+                              device=device)
+        return env.step(state, a), None
+
+    graphed = StateGraph(draw_and_step, "env_step", [gen])
 
     def sync():
         if cuda:
@@ -148,9 +178,10 @@ def run_stepping(device="cuda", batch: int = NUM_ENVS, n_steps: int = 20,
 
     def rollout(state):
         for i in range(n_steps):
-            a = actions[i] if actions is not None else 0.3 * torch.randn(
-                batch, env.action_size, generator=gen, device=device)
-            state = env.step(state, a)
+            if actions is not None:
+                state = env.step(state, actions[i])
+            else:
+                state, _ = (graphed if cuda_graphs else draw_and_step)(state)
         return state
 
     for _ in range(warmup):
@@ -172,7 +203,9 @@ def run_stepping(device="cuda", batch: int = NUM_ENVS, n_steps: int = 20,
         torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
         seconds = t.tolist()
     sps = [batch * world * n_steps / s for s in seconds]
-    return {**summary("stepping", sps), "fused_position": env.fused_position,
+    return {**summary("stepping", sps), "cuda_graphs": cuda_graphs,
+            "fused_position": env.fused_position,
+            "graph": graphed.report,
             "envs": batch * world, "steps_per_sample": n_steps,
             "sample_env_steps_per_s": sps, "sample_s": seconds,
             "launches_per_sample": launches, "state": state}
@@ -186,6 +219,8 @@ def main(argv=None) -> int:
     p.add_argument("--fused-position", type=int, choices=(0, 1), default=1)
     p.add_argument("--steps", type=int, default=3,
                    help="train: training steps in the measured interval")
+    p.add_argument("--eager", action="store_true",
+                   help="launch every kernel from the host, no CUDA graphs")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("vnl_tpu_torch.bench: no CUDA device", file=sys.stderr)
@@ -200,12 +235,14 @@ def main(argv=None) -> int:
     reset_launch_counts()
     fused = bool(args.fused_position)
     if args.mode == "stepping":
-        out = run_stepping(batch=args.envs, fused_position=fused)
+        out = run_stepping(batch=args.envs, fused_position=fused,
+                           cuda_graphs=not args.eager)
         del out["state"]
     else:
         out = run(fused, args.steps, num_devices=world,
                   num_envs=args.envs * world,
-                  batch_size=max(1, args.envs // 32) * world)
+                  batch_size=max(1, args.envs // 32) * world,
+                  cuda_graphs=not args.eager)
     if mesh.rank() == 0:
         out["processes"] = world
         out["device"] = torch.cuda.get_device_name(0)

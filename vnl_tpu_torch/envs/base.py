@@ -5,12 +5,14 @@ B envs of a State at once."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
 from vnl_tpu_torch.physics.forward import forward, make_data, step
 from vnl_tpu_torch.physics.model import Data, Model
+from vnl_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -24,6 +26,61 @@ class State:
 
     def replace(self, **kwargs) -> "State":
         return dataclasses.replace(self, **kwargs)
+
+
+def step_in_place(step: Callable, state: State):
+    """``step(state) -> (next_state, out)`` with the next state written
+    into ``state`` in place (``utils.graphs.copy_``); returns ``out``,
+    whose tensors never share storage with ``state``: the body of a
+    ``StateGraph``."""
+    next_state, out = step(state)
+    held = {t.untyped_storage().data_ptr()
+            for t in graphs.leaves(state) if t.numel()}
+    out = graphs.map_leaves(
+        lambda t: t.clone() if t.numel() and
+        t.untyped_storage().data_ptr() in held else t, out)
+    graphs.copy_(state, next_state)
+    return out
+
+
+class StateGraph:
+    """``step(state) -> (next_state, out)`` as one CUDA graph replay a
+    call: the counterpart of the JAX package's jitted step inside its
+    scan.  Holds the static state (``state``): each call steps it in place
+    and returns it with ``out``, whose tensors the next call overwrites.
+    A state other than ``state`` is copied into it first, so a reset or a
+    restored state reaches the graph.
+
+    The first call runs ``step`` eagerly on a side stream (the warm-up, a
+    real step), clones its next state into ``state`` and captures
+    ``step_in_place`` on it; ``generators``, those ``step`` draws from,
+    are registered with the graph, so the replays draw what eager steps
+    would.  CPU states raise."""
+
+    def __init__(self, step: Callable, name: str,
+                 generators: Sequence[torch.Generator] = ()):
+        self._step, self._name = step, name
+        self._generators = [g for g in generators if g is not None]
+        self._graph: Optional[graphs.Graph] = None
+        self.state: Optional[State] = None
+
+    @property
+    def report(self) -> Optional[dict]:
+        """The capture's report (utils/graphs.py), once captured."""
+        return self._graph.report if self._graph else None
+
+    def __call__(self, state: State):
+        if self._graph is None:
+            graphs.require_cuda(state, f"the {self._name} graph")
+            next_state, out = graphs.warm_up(self._step, state)
+            self.state = graphs.clone(next_state)
+            self._graph = graphs.Graph(
+                functools.partial(step_in_place, self._step),
+                (self.state,), name=self._name, generators=self._generators)
+            return self.state, out
+        if state is not self.state:
+            graphs.copy_(self.state, state)
+        return self.state, self._graph.replay()
 
 
 class PipelineEnv:

@@ -1,3 +1,4 @@
+from vnl_tpu_torch.math.constants import constant
 from vnl_tpu_torch.math.quaternion import (
     axis_angle_to_quat, bounded_quat_dist, cross, euler_to_quat,
     mat_to_quat, norm, normalize, quat_conj, quat_diff, quat_integrate, quat_inv,

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from vnl_tpu_torch.math.constants import constant
+
 _POLE_EPS = 1e-9
 
 
@@ -40,7 +42,7 @@ def quat_mul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * constant((1.0, -1.0, -1.0, -1.0), q)
 
 
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
@@ -133,7 +135,8 @@ def euler_to_quat(euler: torch.Tensor, seq: str = "xyz") -> torch.Tensor:
     basis = {"x": (1.0, 0.0, 0.0), "y": (0.0, 1.0, 0.0), "z": (0.0, 0.0, 1.0)}
     q = None
     for i, ax in enumerate(seq):
-        axis = euler.new_tensor(basis[ax.lower()]).expand(euler[..., :3].shape)
+        axis = constant(basis[ax.lower()], euler).expand(
+            euler[..., :3].shape)
         qi = axis_angle_to_quat(axis, euler[..., i])
         if q is None:
             q = qi

@@ -34,8 +34,8 @@ _ORDER = ((G.PLANE, G.SPHERE, 1), (G.PLANE, G.CAPSULE, 2),
           (G.PLANE, G.BOX, 4), (G.SPHERE, G.SPHERE, 1),
           (G.SPHERE, G.CAPSULE, 1), (G.CAPSULE, G.CAPSULE, 1),
           (G.SPHERE, G.BOX, 1), (G.BOX, G.BOX, 8))
-_CORNER_SIGNS = np.array([[sx, sy, sz] for sx in (-1, 1)
-                          for sy in (-1, 1) for sz in (-1, 1)], np.float64)
+_CORNER_SIGNS = tuple((sx, sy, sz) for sx in (-1.0, 1.0)
+                      for sy in (-1.0, 1.0) for sz in (-1.0, 1.0))
 
 
 def _plane_frame(xmat):
@@ -46,8 +46,8 @@ def _plane_frame(xmat):
 
 def _make_frame(n):
     """Orthonormal frame (rows n, t1, t2) with the given normal."""
-    ez = n.new_tensor([0.0, 0.0, 1.0]).expand_as(n)
-    ex = n.new_tensor([1.0, 0.0, 0.0]).expand_as(n)
+    ez = vmath.constant((0.0, 0.0, 1.0), n).expand_as(n)
+    ex = vmath.constant((1.0, 0.0, 0.0), n).expand_as(n)
     a = torch.where(torch.abs(n[..., 2:3]) < 0.9, ez, ex)
     t1 = vmath.cross(a, n)
     t1 = t1 / torch.clamp(vmath.norm(t1, keepdim=True), min=1e-12)
@@ -142,7 +142,7 @@ def _box_box(pa, Ra, sa, pb, Rb, sb):
     nB = torch.einsum("...ji,...j->...i", R, nA)       # n in the B frame
     rb_n = torch.sum(torch.abs(nB) * sb, -1)
 
-    signs = torch.as_tensor(_CORNER_SIGNS, dtype=dtype, device=dev)
+    signs = vmath.constant(_CORNER_SIGNS, pa)
     cb = pb[..., None, :] + torch.einsum("...ij,cj,...j->...ci", Rb, signs,
                                          sb)
     dist_b = (torch.einsum("...i,...ci->...c", n, cb - pa[..., None, :])
@@ -261,8 +261,7 @@ def _pp_cylinder(x1, R1, s1, x2, R2, s2):
 def _pp_box(x1, R1, s1, x2, R2, s2):
     """The four deepest corners."""
     n = R1[..., :, 2]
-    corners = torch.as_tensor(_CORNER_SIGNS, dtype=x1.dtype,
-                              device=x1.device)
+    corners = vmath.constant(_CORNER_SIGNS, x1)
     pw = x2[..., None, :] + torch.einsum("bgij,cj,gj->bgci", R2, corners, s2)
     cdist = torch.einsum("bgi,bgci->bgc", n, pw - x1[..., None, :])
     top = _deepest(cdist, 4)

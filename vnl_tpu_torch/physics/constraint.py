@@ -241,7 +241,7 @@ def make_constraints(m: Model, d: Data, con_dist, con_pos, con_frame,
             # rows (n, t1, t2); the position term on the normal row only;
             # D = (Dn, Dn impratio, Dn impratio)
             con_aref = (-b[:, None] * base_vel - (k * imp * pos)[..., None]
-                        * base_vel.new_tensor([1.0, 0.0, 0.0]))
+                        * vmath.constant((1.0, 0.0, 0.0), base_vel))
             D_n = 1.0 / torch.clamp(
                 (1.0 - imp) / imp * torch.clamp(iw_sum, min=1e-12), min=1e-10)
             D_t = D_n * float(m.opt.impratio) * pyramid

@@ -22,7 +22,7 @@ def kinematics(m: Model, d: Data) -> Data:
     qpos = d.qpos
     B = qpos.shape[0]
     dtype = qpos.dtype
-    unit = qpos.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(B, 4)
+    unit = vmath.constant((1.0, 0.0, 0.0, 0.0), qpos).expand(B, 4)
     xpos = [qpos.new_zeros(B, 3)]
     xquat = [unit]
     anchor = [None] * m.njnt

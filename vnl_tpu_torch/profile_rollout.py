@@ -2,12 +2,15 @@
 
 Runs the slice of chip_smoke.py (RodentTracking on the rodent twin,
 keeper policy, sampling) at B envs, warms up, then traces a few control
-steps with torch.profiler and prints one JSON line: wall time per control
-step, device time per kernel group (kernel A, kernel B, the rest), the
-number of kernel launches per control step, and the device's busy and
-idle shares (sum of kernel times over the wall time of the same work
-without the profiler, whose own overhead inflates the wall time; kernels
-of one stream do not overlap).  Before that it prints, as one JSON line
+steps with torch.profiler, eagerly and replayed as a CUDA graph
+(training/acting.py ActorStepGraph), and prints one JSON line with both
+({"rollout_profile": {"eager": ..., "graphed": ...}}): wall time per
+control step, device time per kernel group (kernel A, kernel B, the
+rest), the kernels the device runs and the calls by which the host puts
+work on it per control step (kernel and graph launches, copies, fills),
+and the device's busy and idle shares (sum of kernel times over the wall
+time of the same work without the profiler, whose own overhead inflates
+the wall time; kernels of one stream do not overlap).  Before that it prints, as one JSON line
 {"kernel_stages": ...}, where kernels A, B and C spend their time at B envs
 (kernel_bench.stage_split: each kernel whole and with stages left out) and
 what each takes of an SM (registers, spill bytes, shared memory, resident
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import re
 import sys
 import time
 
@@ -32,6 +36,15 @@ import torch
 
 BATCH = 1024
 STEPS = 4
+
+
+# the hand-written kernels by group, every route of each (csrc/*.cu),
+# demangled or not
+KERNEL_GROUPS = tuple(
+    (group, re.compile(rf"(?<![a-z_]){names}_kernel(?![a-z_])"))
+    for group, names in (("kernel A (position)", "position(_warp)?"),
+                         ("kernel B (cg)", "cg(_wide)?"),
+                         ("kernel C (sweep)", "sweep(_tile|_warp)?")))
 
 
 def device_groups(prof):
@@ -43,14 +56,84 @@ def device_groups(prof):
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.name
-        key = ("kernel A (position)" if "position_kernel" in name else
-               "kernel B (cg)" if "cg_kernel" in name else
-               "kernel C (sweep)" if "sweep_" in name and "kernel" in name else
-               "memcpy/memset" if "memcpy" in name.lower()
-               or "memset" in name.lower() else "other torch kernels")
+        key = next((k for k, pattern in KERNEL_GROUPS
+                    if pattern.search(name)),
+                   "memcpy/memset" if "memcpy" in name.lower()
+                   or "memset" in name.lower() else "other torch kernels")
         groups[key] += ev.time_range.end - ev.time_range.start   # us
         launches[key] += 1
     return groups, launches
+
+
+# the host's calls that put work on the device, as the profiler names them
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launches(prof) -> int:
+    """The calls of ``HOST_LAUNCHES`` in a torch.profiler trace."""
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CPU
+               and ev.name.startswith(HOST_LAUNCHES))
+
+
+def profile_rollout(cuda_graphs: bool, batch: int = BATCH,
+                    steps: int = STEPS) -> dict:
+    """The twin rollout at ``batch`` envs, keeper policy, sampling: two
+    warm-up control steps (with ``cuda_graphs``, the capture), ``steps``
+    timed, ``steps`` traced."""
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.envs import make_twin_env
+    from vnl_tpu_torch.models import make_inference_fn
+    from vnl_tpu_torch.training import ActorStepGraph, generate_unroll
+
+    env = make_twin_env(device="cuda")
+    policy = make_inference_fn(compat.policy_from_numpy(
+        compat.KEEPER_POLICY, device="cuda"))(deterministic=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = ActorStepGraph(env, policy, gen) if cuda_graphs else None
+    state = env.reset(batch, generator=gen)
+    state, _ = generate_unroll(env, state, policy, gen, 2, step=step)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    state, _ = generate_unroll(env, state, policy, gen, steps, step=step)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = generate_unroll(env, state, policy, gen, steps,
+                                   step=step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    groups, launches = device_groups(prof)
+    busy_us = sum(groups.values())
+    out = dict(
+        device=torch.cuda.get_device_name(0), batch=batch,
+        steps=steps, cuda_graphs=cuda_graphs,
+        env_steps_per_s=batch * steps / plain_wall,
+        wall_ms_per_step=1e3 * plain_wall / steps,
+        profiled_wall_ms_per_step=1e3 * wall / steps,
+        device_ms_per_step={k: v / 1e3 / steps
+                            for k, v in groups.most_common()},
+        launches_per_step={k: v / steps
+                           for k, v in launches.most_common()},
+        host_launches_per_step=host_launches(prof) / steps,
+        device_busy_share=busy_us / 1e6 / plain_wall,
+        device_idle_share=1.0 - busy_us / 1e6 / plain_wall,
+        graph=step.report if step else None)
+    top = collections.Counter()
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        if t:
+            top[ev.key] += t
+    out["top_device_ops_ms_per_step"] = {
+        k[:60]: v / 1e3 / steps for k, v in top.most_common(8)}
+    return out
 
 
 def main() -> int:
@@ -69,11 +152,8 @@ def main() -> int:
 
     from vnl_tpu_torch import compat, kernel_bench
     from vnl_tpu_torch.bench import gpu_name_and_power_limit
-    from vnl_tpu_torch.envs import make_twin_env
-    from vnl_tpu_torch.models import make_inference_fn
     from vnl_tpu_torch.ops import build
     from vnl_tpu_torch.physics import forward
-    from vnl_tpu_torch.training import generate_unroll
 
     build.build_all()
     for name, log in build.BUILD_LOG.items():
@@ -93,49 +173,9 @@ def main() -> int:
     if args.stages_only or args.scene != "twin":
         return 0
 
-    env = make_twin_env(device="cuda")
-    policy = make_inference_fn(compat.policy_from_numpy(
-        compat.KEEPER_POLICY, device="cuda"))(deterministic=False)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    state = env.reset(BATCH, generator=gen)
-    state, _ = generate_unroll(env, state, policy, gen, 2)     # warm-up
-    torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    state, _ = generate_unroll(env, state, policy, gen, STEPS)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = generate_unroll(env, state, policy, gen, STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    groups, launches = device_groups(prof)
-    busy_us = sum(groups.values())
-    out = dict(
-        device=torch.cuda.get_device_name(0), batch=BATCH,
-        steps=STEPS,
-        env_steps_per_s=BATCH * STEPS / plain_wall,
-        wall_ms_per_step=1e3 * plain_wall / STEPS,
-        profiled_wall_ms_per_step=1e3 * wall / STEPS,
-        device_ms_per_step={k: v / 1e3 / STEPS
-                            for k, v in groups.most_common()},
-        launches_per_step={k: v / STEPS
-                           for k, v in launches.most_common()},
-        device_busy_share=busy_us / 1e6 / plain_wall,
-        device_idle_share=1.0 - busy_us / 1e6 / plain_wall)
-    top = collections.Counter()
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", 0) or 0
-        if t:
-            top[ev.key] += t
-    out["top_device_ops_ms_per_step"] = {
-        k[:60]: v / 1e3 / STEPS for k, v in top.most_common(8)}
-    print(json.dumps(out))
+    print(json.dumps({"rollout_profile": {
+        "eager": profile_rollout(False), "graphed": profile_rollout(True),
+        "card": gpu_name_and_power_limit()}}))
     return 0
 
 

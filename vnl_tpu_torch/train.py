@@ -26,7 +26,8 @@ Paths in the configs are relative to the working directory.  A run writes
 ``state/<steps>.npz`` full-state checkpoints and ``finished.npz``; the
 metrics go to ``<log_dir>/metrics_<run id>.jsonl`` (``train.log_dir``,
 default ./logs; and to wandb with ``train.use_wandb=True``).  Runs on
-``cuda`` unless ``main(argv, device="cpu")``.
+``cuda`` unless ``main(argv, device="cpu")``; on ``cuda`` the control step
+and the SGD update replay CUDA graphs (``training.train``).
 """
 
 from __future__ import annotations

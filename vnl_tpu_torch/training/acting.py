@@ -1,6 +1,10 @@
 """Rollout collection and periodic evaluation (PyTorch counterpart of
 vnl_tpu/training/acting.py): the policy reads the reference-trajectory
-features in state.info["traj"] beside the proprioceptive observation."""
+features in state.info["traj"] beside the proprioceptive observation.
+
+On a CUDA device the control step can run as one CUDA graph replay
+(``ActorStepGraph``), the counterpart of the JAX package's jitted step
+inside its scan (acting.py:55); the CPU runs ``actor_step`` eagerly."""
 
 from __future__ import annotations
 
@@ -11,9 +15,10 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vnl_tpu_torch.envs.base import State
+from vnl_tpu_torch.envs.base import State, StateGraph
 from vnl_tpu_torch.envs.wrappers import EvalWrapper
 from vnl_tpu_torch.training.types import Transition
+from vnl_tpu_torch.utils import graphs
 
 
 def actor_step(env, env_state: State, policy,
@@ -29,6 +34,21 @@ def actor_step(env, env_state: State, policy,
         extras={"policy_extras": policy_extras,
                 "state_extras": {k: next_state.info[k]
                                  for k in extra_fields}})
+
+
+class ActorStepGraph(StateGraph):
+    """``actor_step(env, state, policy, generator, extra_fields)`` as one
+    CUDA graph replay a call (envs.base.StateGraph): each call steps the
+    static state ``state`` in place and returns it with the step's
+    transition, which the next call overwrites."""
+
+    def __init__(self, env, policy, generator: Optional[torch.Generator],
+                 extra_fields: Sequence[str] = ()):
+        super().__init__(
+            functools.partial(actor_step, env, policy=policy,
+                              generator=generator,
+                              extra_fields=tuple(extra_fields)),
+            name="control_step", generators=[generator])
 
 
 def tree_map(fn: Callable, *trees):
@@ -47,16 +67,27 @@ def tree_map(fn: Callable, *trees):
 def generate_unroll(env, env_state: State, policy,
                     generator: Optional[torch.Generator],
                     unroll_length: int,
-                    extra_fields: Sequence[str] = ()
+                    extra_fields: Sequence[str] = (),
+                    step: Optional[ActorStepGraph] = None
                     ) -> Tuple[State, Transition]:
     """``unroll_length`` actor steps; returns the final state and the
-    stacked (time-leading) Transition."""
-    transitions = []
-    state = env_state
-    for _ in range(unroll_length):
-        state, tr = actor_step(env, state, policy, generator, extra_fields)
-        transitions.append(tr)
-    return state, tree_map(lambda *xs: torch.stack(xs), *transitions)
+    time-leading Transition: each step's transition is written into slot
+    t of (T, B, ...) tensors made for this unroll.  ``step``, an
+    ActorStepGraph of the same env, policy, generator and extra fields,
+    replays the control-step graph in place of ``actor_step``; the final
+    state is then its static state, which its next call steps on."""
+    if step is None:
+        step = functools.partial(actor_step, env, policy=policy,
+                                 generator=generator,
+                                 extra_fields=tuple(extra_fields))
+    state, out = env_state, None
+    for t in range(unroll_length):
+        state, tr = step(state)
+        if out is None:
+            out = graphs.map_leaves(
+                lambda x: x.new_empty((unroll_length,) + x.shape), tr)
+        graphs.copy_(graphs.map_leaves(lambda x: x[t], out), tr)
+    return state, out
 
 
 class Evaluator:

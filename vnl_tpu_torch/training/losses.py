@@ -16,6 +16,17 @@ import torch
 from vnl_tpu_torch.training.types import Metrics, Transition
 
 
+def correlation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pearson correlation of two vectors, in [-1, 1]: torch.corrcoef's
+    off-diagonal entry without its check of the degrees of freedom, which
+    reads a device value on the host and so cannot be captured in a CUDA
+    graph."""
+    da, db = a - a.mean(), b - b.mean()
+    return torch.clamp((da * db).sum() / torch.sqrt((da * da).sum()
+                                                    * (db * db).sum()),
+                       -1.0, 1.0)
+
+
 def kl_divergence(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """Mean elementwise KL(N(mean, exp(logvar)) || N(0, 1))."""
     return 0.5 * torch.mean(mean ** 2 + torch.exp(logvar) - logvar - 1.0)
@@ -104,8 +115,7 @@ def compute_ppo_intention_loss(
 
     total = surrogate + value_loss + entropy_bonus + posterior_kl
     with torch.no_grad():
-        corr = torch.corrcoef(torch.stack([targets.reshape(-1),
-                                           rewards.reshape(-1)]))[0, 1]
+        corr = correlation(targets.reshape(-1), rewards.reshape(-1))
         metrics = {
             "total_loss": total.detach(),
             "policy_loss": surrogate.detach(),

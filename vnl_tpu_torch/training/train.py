@@ -6,9 +6,21 @@ One training step: ``rollouts_per_step`` unrolls of ``unroll_length``
 control steps over all envs, flattened to rows; the normaliser update;
 ``num_updates_per_batch`` shuffled passes over the rows, one Adam update
 per minibatch.  The rollout of a step acts with the normaliser from before
-that step's update, the SGD with the updated one.  Everything runs eagerly
-(no graph capture) and in fp32: the physics pins TF32 off and the flag is
-global, so the networks' products are fp32 too.
+that step's update, the SGD with the updated one.  Everything runs in
+fp32: the physics pins TF32 off and the flag is global, so the networks'
+products are fp32 too.
+
+CUDA graphs (``cuda_graphs``; the default on a CUDA device, never on the
+CPU): the control step (policy, env step with its substeps, transition)
+is one graph replay (acting.ActorStepGraph), and so is each SGD update
+(gradients.gradient_update_fn), the counterparts of the JAX package's
+jitted scans (vnl_tpu/training/train.py:202-284).  A control step leaves
+the replay and one copy of its transition into the unroll's slot; an
+update leaves the copy of its minibatch into the graph's static one, the
+replay and one copy of its loss and stats.  The shuffle and the
+minibatch gathers of a pass stay outside the graphs.  The graphed run
+computes what the eager one computes (``cuda_graphs=False``), draw for
+draw from the same generators.
 
 Checkpoints (``checkpoint_dir``, ``restore_checkpoint_path``) hold the
 full TrainingState (training/checkpoint.py).  A checkpoint is written after
@@ -73,22 +85,27 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+EXTRA_FIELDS = ("truncation", "traj")   # the state extras the loss reads
+
+
 def collect_rollouts(env, env_state, policy, generator, unroll_length: int,
-                     rollouts_per_step: int):
+                     rollouts_per_step: int,
+                     step: Optional[acting.ActorStepGraph] = None):
     """Fills one training batch: ``rollouts_per_step`` unrolls, each
-    (T, B_env, ...), as rows (rollouts * B_env, T, ...)."""
+    (T, B_env, ...), as rows (rollouts * B_env, T, ...).  ``step``: the
+    control-step graph (of ``EXTRA_FIELDS``), see generate_unroll."""
     chunks = []
     for _ in range(rollouts_per_step):
         env_state, chunk = acting.generate_unroll(
             env, env_state, policy, generator, unroll_length,
-            extra_fields=("truncation", "traj"))
+            extra_fields=EXTRA_FIELDS, step=step)
         chunks.append(chunk)
     batch = acting.tree_map(
         lambda *xs: torch.cat([x.transpose(0, 1) for x in xs]), *chunks)
     return env_state, batch
 
 
-def load_training_state(ppo_network, optimizer: torch.optim.Adam,
+def load_training_state(ppo_network, optimizer: gradients.Adam,
                         state: TrainingState) -> None:
     """Copies a TrainingState's parameters into the networks and its Adam
     state into the optimizer (the normaliser is the caller's)."""
@@ -119,7 +136,8 @@ def sgd_pass(update_step: Callable, batch: Transition, num_minibatches: int,
     """One pass over the batch: shuffle the rows (by ``order``, else by a
     permutation drawn from ``generator``), split them into
     ``num_minibatches`` and apply ``update_step(minibatch) -> (loss,
-    stats)`` to each in turn.  Returns the stats of every update."""
+    stats)`` to each in turn.  Returns the stats of every update.  The
+    shuffle and the gathers run once a pass, outside a graphed update."""
     n_rows = batch.observation.shape[0]
     if order is None:
         order = torch.randperm(n_rows, generator=generator,
@@ -166,15 +184,24 @@ def train(
     checkpoint_dir: Optional[str] = None,
     adaptive_clip_weights: bool = False,
     device="cuda",
+    cuda_graphs: Optional[bool] = None,
 ):
     """Runs PPO; returns (make_policy, (normalizer_params, policy
     state_dict), metrics).  ``make_policy(deterministic)`` acts with the
     trained networks.  ``environment`` lives on ``device``, this rank's
     GPU.  ``num_envs`` counts the envs of all ranks; ``num_devices``, when
-    given, must be the process group's size (1 without a group)."""
+    given, must be the process group's size (1 without a group).
+    ``cuda_graphs``: replay the control step and the SGD update as CUDA
+    graphs (None: on a CUDA device); True on the CPU raises."""
     if batch_size * num_minibatches % num_envs != 0:
         raise ValueError(
             "num_envs must divide batch_size * num_minibatches")
+    on_cuda = torch.device(device).type == "cuda"
+    if cuda_graphs is None:
+        cuda_graphs = on_cuda
+    if cuda_graphs and not on_cuda:
+        raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
+                         f"{device!r}; the CPU runs eagerly")
     start_walltime = time.time()
 
     world, rank = mesh_lib.world_size(), mesh_lib.rank()
@@ -221,7 +248,13 @@ def train(
         clipping_epsilon=clipping_epsilon,
         normalize_advantage=normalize_advantage, kl_weight=kl_weight)
     update_step = gradients.gradient_update_fn(
-        loss_fn, optimizer, has_aux=True, data_parallel=data_parallel)
+        loss_fn, optimizer, has_aux=True, data_parallel=data_parallel,
+        cuda_graph=cuda_graphs, generators=(gen,))
+    # the env state lives in the graph's static state from its first
+    # replay on; a rebound env_state (the re-reset of adaptive clip
+    # weights) is copied into it by the next unroll
+    actor = (acting.ActorStepGraph(env, policy, gen, EXTRA_FIELDS)
+             if cuda_graphs else None)
 
     named_parameters = dict(ppo_network.named_parameters())
 
@@ -248,7 +281,8 @@ def train(
         _sync(device)
         t0 = time.perf_counter()
         env_state, batch = collect_rollouts(
-            env, env_state, policy, gen, unroll_length, rollouts_per_step)
+            env, env_state, policy, gen, unroll_length, rollouts_per_step,
+            step=actor)
         _sync(device)
         t1 = time.perf_counter()
         normalizer_params = running_statistics.update(
