@@ -39,8 +39,13 @@ Phases, in order; any failure exits non-zero:
      as in every train(...) and command line below) for four training
      steps with the fused position stage
      (kernel A) and two with the unfused one (kernel C), an evaluation
-     after every interval; losses must be finite, parameters must move,
-     and the launch counts must be those of the chosen stage;
+     after every interval (128 envs, each control step a replay of the
+     Evaluator's graph, captured at the first); losses must be finite,
+     parameters must move, and the launch counts must be those of the
+     chosen stage; prints the evaluation's seconds graphed (the first,
+     with the capture, and a later one), the capture's seconds and nodes,
+     and the seconds of one eager evaluation of the trained networks at
+     the same size;
   7. the command line: the port's MJCF compiler builds the twin from
      rodent_twin.xml on the card (every field equal to
      rodent_twin_model.npz, bit for bit); `python -m vnl_tpu_torch.train`'s
@@ -116,11 +121,13 @@ Phases, in order; any failure exits non-zero:
      which must exit with 0;
  12. the checkpoint tools and the examples on phase 7's first run:
      vnl_tpu_torch.eval_checkpoint.evaluate (the deterministic policy, 16
-     envs over the whole clip, 245 control steps) on its last params file
-     and on its last state file, which must give the same rewards and
-     lengths bit for bit, all finite, every length in [1, 245], with A and
-     B at least 5 x 245 launches each and C none (a {"eval_checkpoint":
-     ...} line each); vnl_tpu_torch.render_checkpoint.render on the params
+     envs over the whole clip, 245 control steps, graphed) on its last
+     params file and on its last state file, and eagerly on the params
+     file, which must give the same rewards and lengths bit for bit, all
+     finite, every length in [1, 245], with A and B at least 5 x 245
+     launches each and C none, the eager run's launches those of the
+     graphed (a {"eval_checkpoint": ...} line each; the seconds both ways
+     and the capture's); vnl_tpu_torch.render_checkpoint.render on the params
      file with a synthetic skin around the twin (write_twin_skin: a hull
      of 640 faces on 3 bones), which must write the diag PNG and the video
      (a .gif without imageio's mp4 backend); the first 8 skinned overlay
@@ -161,7 +168,19 @@ Phases, in order; any failure exits non-zero:
      (qpos, qvel, reward, action, ...) equal bit for bit; train(...) at
      the bench's hyperparameters (fused, episode 30) for two training
      steps, eager and graphed, every final parameter and buffer and every
-     loss metric equal bit for bit; the stepping bench eager and graphed,
+     loss metric equal bit for bit, with an evaluation before and after
+     the two steps whose metrics are equal bit for bit too (the graph,
+     captured before, reads the weights the steps wrote in place); the
+     twin's fused Evaluator at 128 envs x 30 steps with the keeper's
+     sampling policy, two evaluations, metrics and final states;
+     eval_checkpoint.evaluate on phase 7's last params file at 16 envs
+     over the whole clip with fixed draws (noise=: its own graph with a
+     static latent), rewards, lengths and final state; EvalCallback.rollout
+     at batch 1 for 30 steps over two calls (phase 7's first and last
+     params files, one generator reseeded with the call's number), each
+     to the end and stopping at done, every series; each of these eager
+     and graphed, with one more replay of each graph traced as below; the
+     stepping bench eager and graphed,
      final states equal bit for bit; the launch counts of each pair equal;
      one more replay of each rollout's control-step graph traced with
      torch.profiler, its kernels A, B and C equal to the launches the
@@ -171,7 +190,17 @@ Phases, in order; any failure exits non-zero:
      unfused one untraced) eager and graphed: control-step and SGD-update
      wall ms, training env-steps/s, device busy shares, the host's
      launches a control step and an update; every capture's time, node
-     count and pool bytes; a {"graphs": ...} line.
+     count and pool bytes; a {"graphs": ...} line;
+ 16. the port's tools beside the package: vnl_tpu_torch.bench_cliplib at
+     1024 envs and 2, 8 and 64 clips of the twin's recording (each
+     control step with its action draw one replay of its graph; every
+     state finite, the library of the asked size, A and B at least once
+     a substep), its env-steps/s a size and their flatness (min over max,
+     reported, not gated); then vnl_tpu_torch.run_humanoid at 1024 envs
+     with the TPU tool's hyperparameters for two intervals of two
+     training steps and three graphed evaluations of 256 envs (one
+     capture), which must give finite losses and move the parameters; a
+     {"cliplib_humanoid": ...} line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
 twin's A, B and C; B's widest route on the padded twin; A and B at the
@@ -180,7 +209,8 @@ its launches on the paths that run that shape (phase 14 counts for each
 scene it runs; for B's widest route, ops.launch_counts["cg_widest"]
 summed over every path the run drives, which must be 0: no scene has
 that many rows), time per launch, plain time, bound, error, registers, shared memory and resident blocks per SM,
-every number measured in this run, and last
+every number measured in this run (the twin's rows count phase 16's
+probe, the humanoid's its learning run), and last
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--out details.json] [--old DIR]
@@ -205,6 +235,7 @@ OTHER_BATCHES = (1000, 3)   # also checked against the plain versions
 UNROLL = 20
 SEED = 0
 EVAL_EPISODE = 30     # control steps per episode in phase 6 (bench: 150)
+EVAL_BATCH = 128      # envs of an evaluation in phases 6 and 15 (bench's)
 # published H100 SXM peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -645,6 +676,34 @@ def phase_kernel_c(m, gen):
     return row, errs
 
 
+def eval_both_ways(net, fused: bool, graph_reports) -> dict:
+    """The evaluation seconds of phase 6 both ways: the graphed run's
+    (its graph's captures in ``graph_reports``), beside one eager
+    evaluation of the trained networks at the same size (128 envs x
+    EVAL_EPISODE steps)."""
+    from vnl_tpu_torch import models
+    from vnl_tpu_torch.envs import make_twin_env, wrap_for_training
+    from vnl_tpu_torch.training import Evaluator
+    device = next(net.parameters()).device
+    evaluator = Evaluator(
+        wrap_for_training(make_twin_env(device=device, fused_position=fused),
+                          episode_length=EVAL_EPISODE),
+        models.make_inference_fn(net)(deterministic=False),
+        num_eval_envs=EVAL_BATCH, episode_length=EVAL_EPISODE,
+        action_repeat=1,
+        generator=torch.Generator(device=device).manual_seed(SEED + 6),
+        cuda_graphs=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.run_evaluation({})
+    torch.cuda.synchronize()
+    captures = [g for g in graph_reports if g["name"] == "eval_step"]
+    return dict(eager_s=time.perf_counter() - t0,
+                capture_s=[g["capture_s"] + g["instantiate_s"]
+                           for g in captures],
+                nodes=[g["nodes"] for g in captures])
+
+
 def phase_training(fused: bool, steps: int):
     """train(...) at the bench's widths; returns (launch counts, report)."""
     from vnl_tpu_torch import bench, models
@@ -684,6 +743,10 @@ def phase_training(fused: bool, steps: int):
         raise AssertionError(
             f"fused={fused}: launches A {a}, B {b}, C {c} over {nsteps} "
             "training steps do not match the chosen position stage")
+    rep["evaluation"] = dict(eval_both_ways(made["net"], fused,
+                                            rep["graphs"]),
+                             graphed_s=rep["eval_s"],
+                             graphed_first_s=rep["first_eval_s"])
     print(json.dumps({"training": {k: v for k, v in rep.items()
                                    if k != "metrics"}}), flush=True)
     return counts, rep
@@ -1486,14 +1549,27 @@ def phase_checkpoint_tools(device):
                                  f", A and B need {need} each, C none")
         results[tag] = res
         rep[f"eval_{tag}"] = dict(seconds=res["seconds"],
+                                  capture_s=res["capture_s"],
                                   load_s=res["load_s"], launches=counts,
                                   reward_mean=rec["reward_mean"],
                                   length_mean=rec["length_mean"])
+    # the params file again, eagerly: the seconds both ways, the same bits
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    results["eager"] = eval_checkpoint.evaluate(params, EVAL_ENVS, cfg,
+                                                device, cuda_graphs=False)
+    torch.cuda.synchronize()
+    if dict(launch_counts) != all_counts[0]:
+        raise AssertionError(f"eval_checkpoint eager: launches "
+                             f"{dict(launch_counts)}, graphed {all_counts[0]}")
+    rep["eval_params"]["eager_seconds"] = results["eager"]["seconds"]
     for key in ("rewards", "lengths"):
-        a, b = results["params"][key], results["state"][key]
-        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
-            raise AssertionError(f"eval_checkpoint: {key} of the params "
-                                 "file and of the state file differ")
+        a = results["params"][key]
+        for other in ("state", "eager"):
+            b = results[other][key]
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"eval_checkpoint: {key} of the params "
+                                     f"file and of the {other} run differ")
     if results["state"]["env_steps"] != steps:
         raise AssertionError(f"state file at {results['state']['env_steps']}")
 
@@ -1519,6 +1595,7 @@ def phase_checkpoint_tools(device):
                              f"{tuple(out['frames'].shape)}")
     rep["render"] = dict(steps=n, video=os.path.basename(out["video"]),
                          rollout_s=out["rollout_s"],
+                         capture_s=out["capture_s"],
                          render_s=out["render_s"],
                          ms_per_frame=1e3 * out["render_s"] / n)
     # the first skinned overlay frames of phase 7's first eval-callback
@@ -1750,15 +1827,18 @@ def rollout_pair(tag, env, make_policy):
 
 def train_pair(device):
     """train(...) at the bench's hyperparameters (fused stage, episode
-    EVAL_EPISODE) for one interval of two training steps, eagerly and with
-    CUDA graphs: every final parameter and buffer of the networks (the
-    normaliser's mean and std among them) and every loss metric equal bit
-    for bit, and the launch counts equal.  Returns (the graphed run's
-    launch counts, report)."""
+    EVAL_EPISODE) for one interval of two training steps, an evaluation
+    before and after it, eagerly and with CUDA graphs: every final
+    parameter and buffer of the networks (the normaliser's mean and std
+    among them), every loss metric and every evaluation metric equal bit
+    for bit (the evaluation graph, captured before the training steps,
+    reads the weights they wrote in place), and the launch counts equal.
+    Returns (the graphed run's launch counts, report)."""
     from vnl_tpu_torch import bench, models
     from vnl_tpu_torch.envs import make_twin_env
     from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     from vnl_tpu_torch.training import train
+    from vnl_tpu_torch.utils import graphs
     kw = dict(bench.TRAIN_KW, episode_length=EVAL_EPISODE)
     per_step = kw["batch_size"] * kw["unroll_length"] * kw["num_minibatches"]
     runs = {}
@@ -1773,15 +1853,19 @@ def train_pair(device):
         reset_launch_counts()
         t0 = time.perf_counter()
         train(make_twin_env(device=device), num_timesteps=2 * per_step,
-              num_evals=1, network_factory=factory, device=device,
+              num_evals=2, network_factory=factory, device=device,
               cuda_graphs=graphed,
               progress_fn=lambda step, m: seen.append(m), **kw)
         torch.cuda.synchronize()
         runs[graphed] = dict(
             params=made["net"].state_dict(), metrics=seen[-1],
+            evals=[eval_metrics(m) for m in seen],
             counts=dict(launch_counts), s=time.perf_counter() - t0)
     eager, graphed = runs[False], runs[True]
+    if len(eager["evals"]) != 2:
+        raise AssertionError(f"training: {len(eager['evals'])} evaluations")
     diff = differing(eager["params"], graphed["params"])
+    diff += differing(eager["evals"], graphed["evals"])
     losses = [k for k in eager["metrics"] if k.startswith("training/")
               and not k.endswith(("sps", "walltime", "_s_per_step"))]
     diff += [k for k in losses
@@ -1791,13 +1875,187 @@ def train_pair(device):
                              f"{diff[:8]} ({len(diff)}), launches "
                              f"{eager['counts']} / {graphed['counts']}")
     return graphed["counts"], dict(
-        compared=len(eager["params"]) + len(losses),
+        compared=len(eager["params"]) + len(losses) +
+        len(list(graphs.named_leaves(eager["evals"]))),
         launches=graphed["counts"],
         **{f"{tag}_{k}": runs[g]["metrics"][f"training/{k}"]
            for tag, g in (("eager", False), ("graphed", True))
            for k in ("sps", "rollout_s_per_step", "sgd_s_per_step")},
         **{f"{tag}_run_s": runs[g]["s"]
            for tag, g in (("eager", False), ("graphed", True))})
+
+
+TIMES = ("eval/walltime", "eval/epoch_eval_time", "eval/sps")
+
+
+def eval_metrics(metrics) -> dict:
+    """An evaluation's metrics as tensors, its clock readings left out."""
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in metrics.items()
+            if k.startswith("eval/") and k not in TIMES}
+
+
+def replay_profiled(tag, graph) -> dict:
+    """One more replay of an envs.StateGraph traced with torch.profiler:
+    the kernels A, B and C it ran must be the launches its capture counts
+    a replay.  Returns them."""
+    per_replay = {counter: graph.report["launches_per_replay"].get(
+        counter, 0) for counter, _ in COUNTED_GROUPS}
+    ran = profiled_launches(lambda: graph(graph.state))
+    if ran != per_replay or not any(per_replay.values()):
+        raise AssertionError(f"{tag}: a profiled replay ran {ran} of "
+                             f"kernels A, B, C; its capture counts "
+                             f"{per_replay}")
+    return ran
+
+
+def graph_pair(tag, run):
+    """``run(graphed)`` eagerly and graphed, each from launch counts at 0:
+    it returns (its results, the StateGraphs it made, seconds).  The
+    results equal bit for bit, the launch counts equal, every graph made
+    once (a later call replays it) and a profiled replay of each backs
+    the counts.  Returns (the graphed run's launch counts, report)."""
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from vnl_tpu_torch.utils import graphs
+    runs = {}
+    for graphed in (False, True):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, made, seconds = run(graphed)
+        torch.cuda.synchronize()
+        runs[graphed] = dict(out=out, made=made, s=seconds,
+                             counts=dict(launch_counts))
+    eager, graphed = runs[False], runs[True]
+    diff = differing(eager["out"], graphed["out"])
+    if diff or eager["counts"] != graphed["counts"] or eager["made"] or \
+            not graphed["made"]:
+        raise AssertionError(f"{tag}: graphed differs from eager in "
+                             f"{diff[:8]} ({len(diff)}), launches "
+                             f"{eager['counts']} / {graphed['counts']}, "
+                             f"graphs {len(graphed['made'])}")
+    return graphed["counts"], dict(
+        compared=len(list(graphs.named_leaves(eager["out"]))),
+        launches=graphed["counts"], eager_s=eager["s"],
+        graphed_s=graphed["s"],
+        profiled_launches_per_replay=[replay_profiled(tag, g)
+                                      for g in graphed["made"]],
+        graphs=[g.report for g in graphed["made"]])
+
+
+def timed_calls(calls):
+    """Runs each of ``calls`` between synchronisations; (results, s)."""
+    out, seconds = [], []
+    for call in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(call())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return out, seconds
+
+
+def evaluator_pair(device):
+    """The twin's fused Evaluator, 128 envs x EVAL_EPISODE steps, the
+    keeper's sampling policy: two evaluations, their metrics and final
+    states."""
+    from vnl_tpu_torch.envs import make_twin_env, wrap_for_training
+    from vnl_tpu_torch.training import Evaluator
+    from vnl_tpu_torch.utils import graphs
+
+    def run(graphed):
+        ev = Evaluator(
+            wrap_for_training(make_twin_env(device=device),
+                              episode_length=EVAL_EPISODE),
+            keeper_policy(None), num_eval_envs=EVAL_BATCH,
+            episode_length=EVAL_EPISODE, action_repeat=1,
+            generator=torch.Generator(device=device).manual_seed(SEED + 15),
+            cuda_graphs=graphed)
+
+        def once():
+            m = ev.run_evaluation({})
+            return eval_metrics(m), graphs.clone(ev.last_state)
+
+        out, seconds = timed_calls([once, once])
+        return out, ev.graphs, seconds
+
+    return graph_pair("evaluator", run)
+
+
+def phase7_params():
+    """The params files of phase 7's first run, by env steps."""
+    import glob
+    (run,) = glob.glob(os.path.join(CLI_DIR, "train", "ck", "*"))
+    return [os.path.join(run, f"{n}.npz") for n in sorted(
+        int(f[:-4]) for f in os.listdir(run)
+        if f.endswith(".npz") and f[:-4].isdigit())]
+
+
+def twin_eval_cfg():
+    """The twin config with phase 7's clip and the twin's MJCF."""
+    from vnl_tpu_torch import compat, eval_checkpoint
+    from vnl_tpu_torch.utils import apply_overrides, load_config
+    return apply_overrides(load_config(eval_checkpoint.TWIN_CONFIG), [
+        f"env.clip_path={compat.TWIN_CLIP}",
+        f"env.env_args.mjcf_path={TWIN_XML}"])
+
+
+def eval_checkpoint_pair(device):
+    """eval_checkpoint.evaluate on phase 7's last params file, EVAL_ENVS
+    envs over the whole clip, with fixed draws (``noise=``: reset noise
+    and a latent a step, the graph's static latent): the rewards, the
+    lengths and the final state."""
+    from vnl_tpu_torch import eval_checkpoint
+    from vnl_tpu_torch.utils import graphs
+    params, cfg = phase7_params()[-1], twin_eval_cfg()
+    width = eval_checkpoint.load_policy(params, device)[0].latent_width
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    noise = {"start_frame": torch.zeros(EVAL_ENVS, dtype=torch.long,
+                                        device=device),
+             "reset": 1e-3 * torch.randn(EVAL_ENVS, 74, generator=gen,
+                                         device=device),
+             "latent": [torch.randn(EVAL_ENVS, width, generator=gen,
+                                    device=device)
+                        for _ in range(CLIP_HORIZON)]}
+
+    def run(graphed):
+        (res,), seconds = timed_calls([lambda: eval_checkpoint.evaluate(
+            params, EVAL_ENVS, cfg, device, noise=noise,
+            cuda_graphs=graphed)])
+        ev = res["evaluator"]
+        return ((torch.as_tensor(res["rewards"]),
+                 torch.as_tensor(res["lengths"]),
+                 graphs.clone(ev.last_state)), ev.graphs, seconds)
+
+    return graph_pair("eval_checkpoint_noise", run)
+
+
+def callback_pair(device):
+    """EvalCallback.rollout on the twin's eval env, EVAL_EPISODE steps at
+    batch 1, over two calls (phase 7's first and last params files, as
+    the command line's callback loads a new policy each call) from one
+    generator reseeded with the call's number, each call once to the end
+    and once stopping at done: every series."""
+    from vnl_tpu_torch.train import build_env
+    from vnl_tpu_torch.training import checkpoint as ckpt_lib
+    from vnl_tpu_torch.training.eval_callback import EvalCallback
+    files = phase7_params()
+    env = build_env(twin_eval_cfg(), for_eval=True, device=device)
+
+    def run(graphed):
+        cb = EvalCallback(env, "", episode_length=EVAL_EPISODE, plots=False,
+                          cuda_graphs=graphed)
+        gen = torch.Generator(device=device)
+        calls = []
+        for call, path in enumerate((files[0], files[-1])):
+            policy = ckpt_lib.load_params(path, device=device)
+            for stop in (False, True):
+                calls.append(lambda p=policy, c=call, st=stop: {
+                    k: torch.as_tensor(np.asarray(v))
+                    for k, v in cb.rollout(p, gen.manual_seed(c),
+                                           stop_at_done=st).items()})
+        out, seconds = timed_calls(calls)
+        return out, cb.graphs, seconds
+
+    return graph_pair("eval_callback", run)
 
 
 def phase_graphs(device):
@@ -1822,6 +2080,10 @@ def phase_graphs(device):
             tag, wrap_for_training(env, episode_length=150),
             intention_policy(env))
     counts["training"], rep["training"] = train_pair(device)
+    for tag, pair in (("evaluator", evaluator_pair),
+                      ("eval_checkpoint_noise", eval_checkpoint_pair),
+                      ("eval_callback", callback_pair)):
+        counts[tag], rep[tag] = pair(device)
 
     steps = {}
     for graphed in (False, True):
@@ -1864,8 +2126,88 @@ def phase_graphs(device):
     rep["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"graphs": rep}), flush=True)
     return {"twin": add_counts(counts["twin_fused"], counts["twin_unfused"],
-                               counts["training"], counts["stepping"]),
+                               counts["training"], counts["stepping"],
+                               counts["evaluator"],
+                               counts["eval_checkpoint_noise"],
+                               counts["eval_callback"]),
             "humanoid": counts["humanoid"], "ant": counts["ant"]}, rep
+
+
+HUMANOID_RUN_DIR = os.path.join(ROOT, "build", "run_humanoid_smoke")
+
+
+def phase_cliplib_humanoid(device):
+    """Phase 16: the clip-library probe at BATCH envs and 2, 8 and 64
+    clips, then the humanoid learning run for two intervals of two
+    training steps at BATCH envs with three evaluations of 256 envs
+    replaying one graph.  Returns (launch counts of the probe, of the
+    humanoid run, report)."""
+    from vnl_tpu_torch import bench, bench_cliplib, models, run_humanoid
+    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    rep = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rows = bench_cliplib.run(BATCH, bench_cliplib.SIZES, device)
+    counts_clip = dict(launch_counts)
+    need = 5 * bench_cliplib.STEPS
+    for n, row in zip(bench_cliplib.SIZES, rows):
+        st = row.pop("state")
+        finite = all(bool(torch.isfinite(x).all()) for x in (
+            st.pipeline_state.qpos, st.pipeline_state.qvel, st.reward,
+            st.obs))
+        lp = row["launches_per_sample"]
+        if not finite or row["clips"] != n or \
+                len(row["clip_ids"]) != n or sum(row["clip_ids"]) != BATCH \
+                or lp["position"] < need or lp["cg"] < need:
+            raise AssertionError(f"cliplib at {n} clips: finite {finite}, "
+                                 f"clips {row['clips']}, ids "
+                                 f"{len(row['clip_ids'])}, launches {lp}")
+        row["clip_ids"] = len(row["clip_ids"])
+    rates = [r["env_steps_per_s"] for r in rows]
+    rep["cliplib"] = dict(rows=rows, flatness=min(rates) / max(rates))
+
+    made = {}
+
+    def factory(*a, **kw):
+        made["net"] = models.make_intention_ppo_networks(*a, **kw)
+        made["init"] = {k: v.clone()
+                        for k, v in made["net"].state_dict().items()}
+        return made["net"]
+
+    kw = run_humanoid.train_kwargs(device)
+    per_step = kw["batch_size"] * kw["unroll_length"] * kw["num_minibatches"]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rec = run_humanoid.run(4 * per_step, BATCH, device, HUMANOID_RUN_DIR,
+                           num_evals=3, network_factory=factory)
+    counts_h = dict(launch_counts)
+    rec.pop("params")
+    with open(rec["metrics"]) as f:
+        last = [json.loads(line) for line in f][-1]
+    losses = {k: v for k, v in last.items() if k.startswith("training/")
+              and "loss" in k}
+    now = made["net"].state_dict()
+    still = [k for k, v in made["init"].items()
+             if k.endswith("weight") and torch.equal(v, now[k])]
+    evals = [g for g in rec["graphs"] if g["name"] == "eval_step"]
+    if not losses or not all(np.isfinite(v) for v in losses.values()) or \
+            still or len(rec["curve"]) != 3 or len(evals) != 1 or \
+            rec["env_steps"] != 4 * per_step or \
+            counts_h.get("position", 0) < 100 or counts_h.get("cg", 0) < 100:
+        raise AssertionError(f"run_humanoid: losses {losses}, unmoved "
+                             f"{still[:4]}, curve {rec['curve']}, eval "
+                             f"graphs {len(evals)}, launches {counts_h}")
+    rep["run_humanoid"] = dict(
+        {k: rec[k] for k in ("curve", "wall_s", "env_steps_per_s",
+                             "training_env_steps_per_s_median", "eval_s")},
+        losses=losses, launches=counts_h,
+        eval_graph={k: evals[0][k] for k in ("capture_s", "instantiate_s",
+                                             "nodes")})
+    rep["name_and_power_limit"] = bench.gpu_name_and_power_limit()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"cliplib_humanoid": rep}), flush=True)
+    return counts_clip, counts_h, rep
 
 
 def compare_trees(old: str) -> dict:
@@ -1936,20 +2278,22 @@ def main() -> int:
         device, os.path.dirname(os.path.abspath(args.out)) if args.out
         else "")
     counts_graphs, info["graphs"] = phase_graphs(device)
+    counts_clip, counts_run_h, info["cliplib_humanoid"] = \
+        phase_cliplib_humanoid(device)
     twin_counts = add_counts(counts, counts_fused, counts_unfused,
                              *counts_cli, counts_dp, counts_tools,
                              counts_step, counts_num["twin"],
-                             counts_graphs["twin"])
+                             counts_graphs["twin"], counts_clip)
     counts_h = add_counts(counts_h, counts_num["humanoid"],
-                          counts_graphs["humanoid"])
+                          counts_graphs["humanoid"], counts_run_h)
     counts_ant = add_counts(counts_ant, counts_num["ant"],
                             counts_graphs["ant"])
     kernels = [row_a, row_b, row_bw, row_c] + rows_h + rows_ant + [row_ch]
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
-        # phases 4, 6, 7, 11, 12, 13, 14, 15; the humanoid's: 8, 14, 15,
-        # where C's n 27 pair runs only in 14; the ant's: 9, 14, 15; phase
-        # 15 counts its graphed runs), each path counted
+        # phases 4, 6, 7, 11, 12, 13, 14, 15, 16; the humanoid's: 8, 14,
+        # 15, 16, where C's n 27 pair runs only in 14; the ant's: 9, 14,
+        # 15; phase 15 counts its graphed runs), each path counted
         # from zero on its own; B's widest route is on none, so its count
         # is summed over all of them and must be 0
         paths = (counts_h if row["name"].endswith("humanoid") else

@@ -19,11 +19,18 @@ eager update on the PPO loss, bit for bit over three updates.
 the capture's counts taken back, added once per replay.
 (e) The nest copy's aliasing rules, and that a CUDA graph asked for on
 CPU tensors raises (train, Graph, ActorStepGraph, the update, the
-stepping bench).
+stepping bench, the Evaluator, the eval callback).
 (f) The kernel groups of profile_rollout.device_groups, by which
 chip_smoke.py phase 15 counts the kernels a traced replay ran: every
 __global__ kernel of a csrc source, demangled or mangled, falls in its
 source's group and in no other, and PyTorch's own kernels in none.
+(g) The Evaluator's episodes and the eval callback's batch-1 episode
+behind the same stub graph (allowed on the CPU), against their eager
+loops, bit for bit: the Evaluator's metrics and final state over two
+evaluations with the policy's weights changed in place between them,
+with and without fixed draws (``noise=``, a static latent); the
+callback's series over two calls from one reseeded generator, stopping
+at done and with given latent and action draws, each step in its own row.
 
 The same paths on the card, graphed against eager, are in
 tests/test_torch_cuda.py (marked ``cuda``) and chip_smoke.py phase 15."""
@@ -278,6 +285,11 @@ def test_cuda_graphs_on_the_cpu_raise(twin):
     with pytest.raises(ValueError, match="CUDA device"):
         bench.run_stepping("cpu", batch=2, n_steps=1, samples=1, warmup=0,
                            env=env, cuda_graphs=True)
+    with pytest.raises(ValueError, match="cuda_graphs"):
+        acting.Evaluator(env, policy, 2, 2, 1, cuda_graphs=True)
+    from vnl_tpu_torch.training.eval_callback import EvalCallback
+    with pytest.raises(ValueError, match="cuda_graphs"):
+        EvalCallback(env, "", cuda_graphs=True)
 
 
 CSRC = os.path.join(os.path.dirname(compat.__file__), "csrc")
@@ -307,3 +319,101 @@ def test_kernel_groups_leave_pytorchs_kernels_out():
             "void at::native::vectorized_elementwise_kernel<4, ...>"):
         assert not any(pattern.search(shown) for _, pattern in
                        profile_rollout.KERNEL_GROUPS), shown
+
+
+@pytest.fixture
+def graphs_on_the_cpu(stub_graphs, monkeypatch):
+    """The stub graphs, and cuda_graphs=True allowed on CPU tensors; torch
+    on one thread meanwhile (the test processes share the cores)."""
+    monkeypatch.setattr(graphs, "enabled", lambda c, device, what: bool(c))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+EVAL_ENVS, EVAL_STEPS = 2, 3
+
+
+def _eval_noise(seed, steps=EVAL_STEPS, n=EVAL_ENVS):
+    rng = np.random.default_rng(seed)
+    return {"start_frame": torch.zeros(n, dtype=torch.long),
+            "reset": torch.tensor(1e-3 * rng.normal(size=(n, 74)),
+                                  dtype=torch.float32),
+            "latent": [torch.tensor(rng.normal(size=(n, 64)),
+                                    dtype=torch.float32)
+                       for _ in range(steps)]}
+
+
+@pytest.mark.parametrize("with_noise", [False, True])
+def test_graphed_evaluator_matches_eager(twin, graphs_on_the_cpu,
+                                         with_noise):
+    """Two evaluations each way, the policy's weights changed in place
+    between them (as train's updates change them): the metrics and the
+    final state bit for bit; the graphed Evaluator captures one graph and
+    replays it in the second evaluation."""
+    env, _ = twin
+    runs = []
+    for cuda_graphs in (False, True):
+        keeper = compat.policy_from_numpy(compat.KEEPER_POLICY, device="cpu")
+        evaluator = acting.Evaluator(
+            env, make_inference_fn(keeper)(deterministic=False),
+            num_eval_envs=EVAL_ENVS, episode_length=EVAL_STEPS,
+            action_repeat=1, generator=torch.Generator().manual_seed(5),
+            cuda_graphs=cuda_graphs)
+        out = []
+        for k in range(2):
+            metrics = evaluator.run_evaluation(
+                {}, noise=_eval_noise(k) if with_noise else None)
+            out.append(({n: torch.as_tensor(np.asarray(v))
+                         for n, v in metrics.items()
+                         if n not in ("eval/walltime", "eval/sps",
+                                      "eval/epoch_eval_time")},
+                        graphs.clone(evaluator.last_state)))
+            with torch.no_grad():
+                keeper.action_head.weight.mul_(1.25)
+        assert len(evaluator._graphs) == int(cuda_graphs)
+        runs.append(out)
+    _assert_bits_equal(runs[1], runs[0])
+    assert sorted(runs[0][0][0]) == sorted(runs[1][0][0])
+    # the second evaluation saw the new weights
+    assert not torch.equal(runs[0][0][0]["eval/episode_reward"],
+                           runs[0][1][0]["eval/episode_reward"])
+
+
+def test_graphed_eval_callback_matches_eager(graphs_on_the_cpu):
+    """EvalCallback.rollout graphed against eager over two calls from one
+    generator reseeded (stopping at done, and with the noise kinds given),
+    every series bit for bit; each step's qpos lands in its own row (the
+    graph's outputs are one static tensor, overwritten each replay)."""
+    from vnl_tpu_torch.training.eval_callback import EvalCallback
+    env = make_twin_env(device="cpu", fused_position=False,
+                        physics_steps_per_control_step=2)
+    rng = np.random.default_rng(9)
+    given = {k: [torch.tensor(rng.normal(size=(1, n)), dtype=torch.float32)
+                 for _ in range(EVAL_STEPS)]
+             for k, n in (("latent", 64), ("action", 30))}
+    runs = []
+    for cuda_graphs in (False, True):
+        cb = EvalCallback(env, "", episode_length=EVAL_STEPS, plots=False,
+                          cuda_graphs=cuda_graphs)
+        gen = torch.Generator()
+        out = []
+        for call in range(2):
+            keeper = compat.policy_from_numpy(compat.KEEPER_POLICY,
+                                              device="cpu")
+            with torch.no_grad():
+                keeper.action_head.bias.add_(0.1 * call)
+            for stop, noise in ((False, None), (True, None), (False, given)):
+                traj = cb.rollout(keeper, gen.manual_seed(call), noise,
+                                  stop_at_done=stop)
+                out.append({k: torch.as_tensor(np.asarray(v))
+                            for k, v in traj.items()})
+        assert len(cb._graphs) == (2 if cuda_graphs else 0)
+        runs.append(out)
+    _assert_bits_equal(runs[1], runs[0])
+    qpos = runs[1][0]["qpos"]
+    assert qpos.shape == (EVAL_STEPS, 74)
+    assert all(not torch.equal(qpos[t], qpos[t + 1])
+               for t in range(EVAL_STEPS - 1))
+    assert not torch.equal(runs[1][0]["action"], runs[1][3]["action"])

@@ -86,7 +86,9 @@ def run(fused_position: bool, steps: int, device="cuda", env=None,
     """Trains for a warm-up interval and a measured interval of ``steps``
     training steps each (``overrides`` replace arguments of ``train``;
     ``env`` the twin env, for the CPU tests); returns the measured
-    interval's numbers, the training env-steps/s of both intervals as the
+    interval's numbers (``eval_s`` its evaluation's seconds, and
+    ``first_eval_s`` those of the first, with its graph's capture), the
+    training env-steps/s of both intervals as the
     samples, the kernel launches counted since the caller last reset
     them and the reports of the run's graph captures (``cuda_graphs``
     among ``overrides``: train's; by default graphs on a CUDA device)."""
@@ -123,6 +125,7 @@ def run(fused_position: bool, steps: int, device="cuda", env=None,
         "rollout_s_per_training_step": last["training/rollout_s_per_step"],
         "sgd_s_per_training_step": last["training/sgd_s_per_step"],
         "eval_s": last["eval/epoch_eval_time"],
+        "first_eval_s": seen[0][1]["eval/epoch_eval_time"],
         "metrics": {k: float(v) for k, v in last.items()},
         "launches": {k: launch_counts.get(k, 0) for k in KERNELS},
         "graphs": graphs.REPORTS[captures:],

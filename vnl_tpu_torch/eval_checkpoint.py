@@ -18,7 +18,9 @@ for_eval=True)``: start frame 0, the whole clip, no curriculum), on the
 committed rodent twin by default.  Paths inside the config are relative
 to the working directory (the repo root).  Prints the reward and length
 statistics and one ``{"eval_checkpoint": ...}`` JSON line.  Runs on
-``cuda`` unless ``--device cpu``.
+``cuda`` unless ``--device cpu``; there each control step of the episodes
+is one CUDA graph replay (training.acting.Evaluator), and the record's
+``seconds`` include the graph's capture, ``capture_s``.
 """
 
 from __future__ import annotations
@@ -57,15 +59,19 @@ def load_policy(params_or_path, device="cuda"):
 
 def evaluate(params_or_path, n_envs: int = 16, cfg: Optional[Dict] = None,
              device="cuda", episode_length: Optional[int] = None,
-             noise: Optional[Dict] = None) -> Dict:
+             noise: Optional[Dict] = None,
+             cuda_graphs: Optional[bool] = None) -> Dict:
     """The deterministic policy over ``n_envs`` eval-convention episodes of
     ``episode_length`` control steps (default: the whole clip,
     clip_length - ref_traj_length).  ``cfg`` holds the env group
     (default: the twin's config).  ``noise`` fixes the reset and latent
     draws (Evaluator.run_evaluation); otherwise they come from a
-    generator seeded with 7.  Returns per-episode ``rewards`` and
-    ``lengths`` (numpy), ``horizon``, ``env_steps`` (None for a params
-    file), ``seconds`` of the evaluation and ``load_s``."""
+    generator seeded with 7.  ``cuda_graphs`` (None: on a CUDA device)
+    replays each control step as a CUDA graph (Evaluator).  Returns
+    per-episode ``rewards`` and ``lengths`` (numpy), ``horizon``,
+    ``env_steps`` (None for a params file), ``seconds`` of the evaluation
+    (the graph's capture included), ``capture_s``, ``load_s`` and the
+    ``evaluator`` (its graphs can be replayed again)."""
     cfg = cfg if cfg is not None else load_config(TWIN_CONFIG)
     policy, env_steps, load_s = load_policy(params_or_path, device)
     env = build_env(cfg, for_eval=True, device=device)
@@ -77,13 +83,16 @@ def evaluate(params_or_path, n_envs: int = 16, cfg: Optional[Dict] = None,
         make_inference_fn(policy)(deterministic=True),
         num_eval_envs=n_envs, episode_length=episode_length,
         action_repeat=1,
-        generator=torch.Generator(device=device).manual_seed(EVAL_SEED))
+        generator=torch.Generator(device=device).manual_seed(EVAL_SEED),
+        cuda_graphs=cuda_graphs)
     out = evaluator.run_evaluation({}, aggregate_episodes=False,
                                    noise=noise)
     return dict(rewards=np.asarray(out["eval/episode_reward"]),
                 lengths=np.asarray(out["eval/episode_length"]),
                 horizon=episode_length, n_envs=n_envs, env_steps=env_steps,
-                seconds=out["eval/epoch_eval_time"], load_s=load_s)
+                seconds=out["eval/epoch_eval_time"],
+                capture_s=evaluator.capture_s, load_s=load_s,
+                evaluator=evaluator)
 
 
 def device_name(device) -> str:
@@ -108,7 +117,8 @@ def report(res: Dict, checkpoint: Union[str, None], device) -> Dict:
                 reward_min=float(rew.min()), reward_max=float(rew.max()),
                 length_mean=float(lengths.mean()),
                 rewards=rew.tolist(), lengths=lengths.tolist(),
-                seconds=res["seconds"], load_s=res["load_s"],
+                seconds=res["seconds"], capture_s=res["capture_s"],
+                load_s=res["load_s"],
                 device=device_name(device))
 
 

@@ -5,15 +5,16 @@ Sets up what ``train(...)`` sets up at the widths of vnl_tpu_torch/bench.py
 (1024 envs on the rodent twin, networks (1024, 1024), unroll 20, 32
 minibatches, 16 passes), warms up, and then takes one training step apart:
 the rollout (one 20-step unroll), the normaliser update, the SGD (16 x 32
-minibatch updates) and an evaluation (128 envs, 150 steps).  Each part is
+minibatch updates) and an evaluation (128 envs, 150 steps; the first
+evaluation, with its graph's capture, is timed apart).  Each part is
 timed on the host clock between synchronisations; the rollout and one SGD
 pass are also traced with torch.profiler for the device time by kernel
 group, the host's launches (profile_rollout.HOST_LAUNCHES) and the
 device's busy share (kernel time over the unprofiled wall time of the same
 work; the profiler inflates the wall time).  All of it twice: eagerly,
-and with the control step and the SGD update replayed as CUDA graphs, as
-``train`` runs them on a CUDA device.  Prints one JSON line,
-{"train_profile": {"eager": ..., "graphed": ...}}.
+and with the control step, the SGD update and the evaluation's control
+steps replayed as CUDA graphs, as ``train`` runs them on a CUDA device.
+Prints one JSON line, {"train_profile": {"eager": ..., "graphed": ...}}.
 
   python3 -m vnl_tpu_torch.profile_train [--fused-position 0|1]
 """
@@ -57,7 +58,8 @@ def profile_train(fused_position: bool, cuda_graphs: bool,
     """One training step at the bench's widths taken apart (the module's
     docstring), with ``cuda_graphs`` or eagerly, after a warm-up (with
     ``cuda_graphs``, the captures) of two control steps and one SGD pass;
-    ``evaluation``: also time one evaluation (eager either way); without
+    ``evaluation``: also time two evaluations (with ``cuda_graphs`` the
+    first captures the Evaluator's graph, the second replays it); without
     ``trace``, no profiler: no device times or launches."""
     from vnl_tpu_torch import models
     from vnl_tpu_torch.envs import make_twin_env, wrap_for_training
@@ -110,13 +112,16 @@ def profile_train(fused_position: bool, cuda_graphs: bool,
         norm, batch.observation))
     net.set_normalizer(norm)
     _, sgd_s = timed(lambda: [one_pass(batch) for _ in range(passes)])
-    eval_s = None
+    eval_s = eval_first_s = eval_capture_s = None
     if evaluation:
         evaluator = Evaluator(
             wrap_for_training(raw_env, episode_length=kw["episode_length"]),
             make_policy(deterministic=False), num_eval_envs=128,
             episode_length=kw["episode_length"], action_repeat=1,
-            generator=torch.Generator(device=dev).manual_seed(2))
+            generator=torch.Generator(device=dev).manual_seed(2),
+            cuda_graphs=cuda_graphs)
+        _, eval_first_s = timed(lambda: evaluator.run_evaluation({}))
+        eval_capture_s = evaluator.capture_s
         _, eval_s = timed(lambda: evaluator.run_evaluation({}))
 
     step_s = rollout_s + norm_s + sgd_s
@@ -128,7 +133,9 @@ def profile_train(fused_position: bool, cuda_graphs: bool,
         training_step_s=step_s,
         training_env_steps_per_s=kw["num_envs"] * unroll / step_s,
         wall_s=dict(rollout=rollout_s, normaliser=norm_s, sgd=sgd_s,
-                    evaluation_128x150=eval_s),
+                    evaluation_128x150=eval_s,
+                    first_evaluation_128x150=eval_first_s,
+                    evaluation_capture=eval_capture_s),
         share_of_step=dict(rollout=rollout_s / step_s,
                            normaliser=norm_s / step_s, sgd=sgd_s / step_s),
         control_step_wall_ms=1e3 * rollout_s / unroll,

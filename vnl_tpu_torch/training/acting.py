@@ -4,13 +4,14 @@ features in state.info["traj"] beside the proprioceptive observation.
 
 On a CUDA device the control step can run as one CUDA graph replay
 (``ActorStepGraph``), the counterpart of the JAX package's jitted step
-inside its scan (acting.py:55); the CPU runs ``actor_step`` eagerly."""
+inside its scan (acting.py:55), and so does each control step of the
+``Evaluator``'s episodes; the CPU runs ``actor_step`` eagerly."""
 
 from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,29 +95,83 @@ class Evaluator:
     """Runs full-episode evaluations on a dedicated wrapped env.
 
     ``eval_policy`` is the policy function itself: the networks' weights
-    live in their module, so it always acts with the current ones."""
+    live in their module, so it always acts with the current ones (the
+    trainer updates them in place, and a graph reads them where they
+    live).
+
+    ``cuda_graphs`` (None: on a CUDA device; True on the CPU raises): each
+    control step of an episode is one replay of a CUDA graph over the
+    ``EvalWrapper`` env at the eval batch (envs.StateGraph), captured at
+    the first evaluation and replayed by every later one, the counterpart
+    of the JAX package's jitted episodes (vnl_tpu/training/acting.py:79).
+    The reset stays eager and is copied into the graph's static state.  An
+    evaluation with ``noise["latent"]`` replays a second graph, whose
+    policy reads one static latent tensor; step t's draw is copied into it
+    before each replay.  ``capture_s`` holds the seconds of the captures
+    (``eval/epoch_eval_time`` of the first evaluation includes them)."""
 
     def __init__(self, eval_env, eval_policy: Callable, num_eval_envs: int,
                  episode_length: int, action_repeat: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cuda_graphs: Optional[bool] = None):
         self._generator = generator
         self._walltime = 0.0
+        self.last_state: Optional[State] = None
         self._num_eval_envs = num_eval_envs
         self._episode_steps = episode_length * num_eval_envs
         self._env = EvalWrapper(eval_env)
         self._policy = eval_policy
         self._steps = episode_length // action_repeat
+        self._cuda_graphs = graphs.enabled(cuda_graphs, eval_env.sys.device,
+                                           "Evaluator")
+        # by whether the latent is given: (its StateGraph, static latent)
+        self._graphs: Dict[bool, Tuple[StateGraph, Optional[torch.Tensor]]] \
+            = {}
+
+    @property
+    def graphs(self) -> List[StateGraph]:
+        """The episode graphs made so far (one a kind of evaluation)."""
+        return [g for g, _ in self._graphs.values()]
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds of the graphs' captures and instantiations so far."""
+        return graphs.capture_s(self.graphs)
+
+    def _step(self, latent: Optional[torch.Tensor], state: State):
+        policy = self._policy if latent is None else \
+            functools.partial(self._policy, latent_noise=latent)
+        next_state, _ = actor_step(self._env, state, policy, self._generator)
+        return next_state, None
+
+    def _graph(self, latent: Optional[torch.Tensor]):
+        """The StateGraph of an evaluation with or without a given latent,
+        and its static latent, made at the first such evaluation."""
+        given = latent is not None
+        if given not in self._graphs:
+            static = latent.to(self._env.sys.device).clone() \
+                if given else None
+            self._graphs[given] = (StateGraph(
+                functools.partial(self._step, static),
+                name="eval_step_latent" if given else "eval_step",
+                generators=[self._generator]), static)
+        return self._graphs[given]
 
     def _run_episodes(self, noise: Dict) -> State:
         state = self._env.reset(self._num_eval_envs,
                                 generator=self._generator,
                                 start_frame=noise.get("start_frame"),
                                 noise=noise.get("reset"))
+        latents = noise.get("latent")
         for t in range(self._steps):
-            policy = self._policy if "latent" not in noise else \
-                functools.partial(self._policy,
-                                  latent_noise=noise["latent"][t])
-            state, _ = actor_step(self._env, state, policy, self._generator)
+            latent = None if latents is None else latents[t]
+            if not self._cuda_graphs:
+                state, _ = self._step(latent, state)
+                continue
+            graph, static = self._graph(latent)
+            if static is not None:
+                static.copy_(latent)
+            state, _ = graph(state)
         return state
 
     def run_evaluation(self, training_metrics: Dict,
@@ -127,9 +182,12 @@ class Evaluator:
         ``reset`` (B, nq) for the reset, and ``latent`` (B, latent) for
         each step; the rest come from the generator.  Without
         ``aggregate_episodes`` every metric is per episode, and so are the
-        lengths, ``eval/episode_length``."""
+        lengths, ``eval/episode_length``.  ``last_state`` keeps the final
+        state (a graph's static state, which the next evaluation
+        overwrites)."""
         start = time.time()
         state = self._run_episodes(noise or {})
+        self.last_state = state
         tallies = state.info["eval_metrics"]
         names = list(tallies.episode_metrics)
         # one readback: the metric sums and the episode lengths together

@@ -11,8 +11,12 @@ gives the behaviour and uniform-action log-probs.  Diagnostics:
 ``diag/rtrunk_min|mean``, ``diag/episode_reward_det``,
 ``diag/action_mean|std``, ``diag/log_prob``, ``diag/rand_log_prob``, the
 callback's own seconds ``diag/eval_callback_s``, and a PNG of the plots.
-The JAX package runs the episode as one jitted scan; here it is an eager
-loop on the env's device.
+The JAX package runs the episode as one jitted scan; here, with
+``cuda_graphs`` (None: on a CUDA device; True on the CPU raises), each of
+its control steps is one replay of a CUDA graph (envs.StateGraph), captured
+at the first call and replayed by every later one; the reset stays eager.
+The draws of call n come from one generator of the callback, reseeded
+with n.  The CPU runs the same steps eagerly.
 
 With ``render`` (every ``render_every``-th call) the agent-vs-reference
 ghost overlay video ``<model_path>/rollout_<steps>.mp4`` (a .gif where
@@ -28,21 +32,25 @@ whose predecessor's video is still being rendered skips its own
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import os
 import time
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from vnl_tpu_torch.envs.base import State, StateGraph
 from vnl_tpu_torch.models import make_inference_fn
 from vnl_tpu_torch.training import checkpoint as ckpt_lib
+from vnl_tpu_torch.utils import graphs
 
 
 class EvalCallback:
     def __init__(self, env, model_path: str, logger=None,
                  episode_length: int = 150, render_every: int = 1,
-                 render: bool = False, plots: bool = True):
+                 render: bool = False, plots: bool = True,
+                 cuda_graphs: Optional[bool] = None):
         self._env = env
         self._model_path = model_path
         self._logger = logger
@@ -51,6 +59,11 @@ class EvalCallback:
         self._render = render
         self._plots = plots
         self._calls = 0
+        self._cuda_graphs = graphs.enabled(cuda_graphs, env.sys.device,
+                                           "EvalCallback")
+        self._generator = None      # every call's, reseeded with the call
+        self._policy = None         # the policy module the graphs read
+        self._graphs = {}           # by (noise kinds, generator)
         self._render_pool = None
         self._render_stream = None
         self._pending_render = None
@@ -61,6 +74,68 @@ class EvalCallback:
             if device.type == "cuda":
                 self._render_stream = torch.cuda.Stream(device)
 
+    @property
+    def graphs(self) -> List[StateGraph]:
+        """The episode graphs made so far (one a kind of noise and
+        generator)."""
+        return [g for g, _, _ in self._graphs.values()]
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds of the episode graphs' captures and instantiations."""
+        return graphs.capture_s(self.graphs)
+
+    def _step(self, det_policy, stoch_policy, latent_width: int,
+              generator: Optional[torch.Generator],
+              noise: Dict[str, torch.Tensor], state: State):
+        """One control step of the episode: the deterministic and the
+        sampling policy on the same latent, then ``env.step`` with the
+        mode action.  ``noise`` holds the step's given draws (``latent``,
+        ``action``, ``uniform``); the others come from ``generator``.
+        Returns the next state and the step's series."""
+        traj, obs = state.info["traj"], state.obs
+        latent = noise.get("latent")
+        if latent is None:
+            latent = torch.randn((obs.shape[0], latent_width),
+                                 generator=generator, device=obs.device)
+        act, _ = det_policy(traj, obs, generator, latent_noise=latent)
+        _, extras = stoch_policy(traj, obs, generator, latent_noise=latent,
+                                 action_noise=noise.get("action"),
+                                 uniform=noise.get("uniform"))
+        nstate = self._env.step(state, act)
+        rtrunk = nstate.info.get("termination_error",
+                                 torch.zeros_like(nstate.reward))
+        return nstate, {
+            "qpos": nstate.pipeline_state.qpos[0], "rtrunk": rtrunk[0],
+            "reward": nstate.reward[0], "action": act[0],
+            "log_prob": extras["log_prob"][0],
+            "rand_log_prob": extras["rand_log_prob"][0]}
+
+    def _graphed_step(self, policy, generator, noise: Dict):
+        """(the StateGraph of the episode's step for the noise kinds given
+        and this generator, its static noise), made at first use.  The
+        graphs read one policy module: the first one given; a later
+        policy's weights are copied into it in place."""
+        if self._policy is None:
+            self._policy = policy
+        elif policy is not self._policy:
+            self._policy.load_state_dict(policy.state_dict())
+        kinds = tuple(sorted(noise))
+        key = (kinds, id(generator))
+        if key not in self._graphs:
+            device = self._env.sys.device
+            static = {k: noise[k][0].to(device).clone() for k in kinds}
+            make = make_inference_fn(self._policy)
+            step = functools.partial(
+                self._step, make(deterministic=True), make(),
+                self._policy.latent_width, generator, static)
+            name = "_".join(("eval_callback_step",) + kinds)
+            self._graphs[key] = (StateGraph(step, name=name,
+                                            generators=[generator]),
+                                 static, generator)
+        graph, static, _ = self._graphs[key]
+        return graph, static
+
     def rollout(self, policy, generator: Optional[torch.Generator] = None,
                 noise: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
                 stop_at_done: bool = False) -> Dict[str, np.ndarray]:
@@ -70,41 +145,43 @@ class EvalCallback:
         ``action`` (1, nu) and ``uniform`` (1, nu); the rest come from
         ``generator``.  With ``stop_at_done`` the episode ends after the
         step that sets ``done`` (one readback a step), else it runs
-        ``episode_length`` steps.  Returns (T, ...) numpy series, and the
-        episode's ``start_frame`` and ``clip_id`` (-1 for a single-clip
-        env) as ints."""
+        ``episode_length`` steps.  Each step is written into slot t of
+        (T, ...) series, which a graph replay cannot alias.  Returns
+        those series as numpy, and the episode's ``start_frame`` and
+        ``clip_id`` (-1 for a single-clip env) as ints."""
         noise = noise or {}
-        make = make_inference_fn(policy)
-        det_policy, stoch_policy = make(deterministic=True), make()
+        per_step = {k: noise[k] for k in ("latent", "action", "uniform")
+                    if k in noise}
         state = self._env.reset(1, generator=generator,
                                 start_frame=noise.get("start_frame"),
                                 noise=noise.get("reset"))
         start_frame = int(state.info.get("cur_frame", torch.zeros(1))[0])
         clip_id = int(state.info.get("clip_id", torch.full((1,), -1))[0])
-        out = {k: [] for k in ("qpos", "rtrunk", "reward", "action",
-                               "log_prob", "rand_log_prob")}
+        if self._cuda_graphs:
+            graph, static = self._graphed_step(policy, generator, per_step)
+        else:
+            make = make_inference_fn(policy)
+            eager = functools.partial(
+                self._step, make(deterministic=True), make(),
+                policy.latent_width, generator)
+        out, steps = None, self._episode_length
         for t in range(self._episode_length):
-            traj, obs = state.info["traj"], state.obs
-            latent = noise["latent"][t] if "latent" in noise else \
-                torch.randn((1, policy.latent_width), generator=generator,
-                            device=obs.device)
-            act, _ = det_policy(traj, obs, generator, latent_noise=latent)
-            _, extras = stoch_policy(
-                traj, obs, generator, latent_noise=latent,
-                action_noise=noise["action"][t] if "action" in noise
-                else None,
-                uniform=noise["uniform"][t] if "uniform" in noise else None)
-            state = self._env.step(state, act)
-            out["qpos"].append(state.pipeline_state.qpos[0])
-            out["rtrunk"].append(state.info.get(
-                "termination_error", torch.zeros(1))[0])
-            out["reward"].append(state.reward[0])
-            out["action"].append(act[0])
-            out["log_prob"].append(extras["log_prob"][0])
-            out["rand_log_prob"].append(extras["rand_log_prob"][0])
+            drawn = {k: v[t] for k, v in per_step.items()}
+            if self._cuda_graphs:
+                for k, v in drawn.items():
+                    static[k].copy_(v)
+                state, series = graph(state)
+            else:
+                state, series = eager(drawn, state)
+            if out is None:
+                out = {k: v.new_empty((self._episode_length,) + v.shape)
+                       for k, v in series.items()}
+            for k, v in series.items():
+                out[k][t].copy_(v)
             if stop_at_done and bool(state.done[0]):
+                steps = t + 1
                 break
-        return dict({k: torch.stack(v).cpu().numpy() for k, v in out.items()},
+        return dict({k: v[:steps].cpu().numpy() for k, v in out.items()},
                     start_frame=start_frame, clip_id=clip_id)
 
     @staticmethod
@@ -130,8 +207,9 @@ class EvalCallback:
         path = ckpt_lib.save_params(
             os.path.join(self._model_path, str(num_steps)), params)
         policy = ckpt_lib.load_params(path, device=device)
-        gen = torch.Generator(device=device).manual_seed(self._calls)
-        traj = self.rollout(policy, gen)
+        if self._generator is None:
+            self._generator = torch.Generator(device=device)
+        traj = self.rollout(policy, self._generator.manual_seed(self._calls))
         series = self.diagnostics(traj)
         if self._plots:
             try:

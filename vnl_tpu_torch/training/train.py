@@ -14,7 +14,8 @@ CUDA graphs (``cuda_graphs``; the default on a CUDA device, never on the
 CPU): the control step (policy, env step with its substeps, transition)
 is one graph replay (acting.ActorStepGraph), and so is each SGD update
 (gradients.gradient_update_fn), the counterparts of the JAX package's
-jitted scans (vnl_tpu/training/train.py:202-284).  A control step leaves
+jitted scans (vnl_tpu/training/train.py:202-284); the evaluator replays
+its own graph of the eval env's control step (acting.Evaluator).  A control step leaves
 the replay and one copy of its transition into the unroll's slot; an
 update leaves the copy of its minibatch into the graph's static one, the
 replay and one copy of its loss and stats.  The shuffle and the
@@ -60,6 +61,7 @@ from vnl_tpu_torch.training import (acting, checkpoint, gradients,
                                     running_statistics)
 from vnl_tpu_torch.training import losses as ppo_losses
 from vnl_tpu_torch.training.types import Transition
+from vnl_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -191,17 +193,13 @@ def train(
     trained networks.  ``environment`` lives on ``device``, this rank's
     GPU.  ``num_envs`` counts the envs of all ranks; ``num_devices``, when
     given, must be the process group's size (1 without a group).
-    ``cuda_graphs``: replay the control step and the SGD update as CUDA
-    graphs (None: on a CUDA device); True on the CPU raises."""
+    ``cuda_graphs``: replay the control step, the SGD update and the
+    evaluation's control steps as CUDA graphs (None: on a CUDA device);
+    True on the CPU raises."""
     if batch_size * num_minibatches % num_envs != 0:
         raise ValueError(
             "num_envs must divide batch_size * num_minibatches")
-    on_cuda = torch.device(device).type == "cuda"
-    if cuda_graphs is None:
-        cuda_graphs = on_cuda
-    if cuda_graphs and not on_cuda:
-        raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
-                         f"{device!r}; the CPU runs eagerly")
+    cuda_graphs = graphs.enabled(cuda_graphs, device, "train")
     start_walltime = time.time()
 
     world, rank = mesh_lib.world_size(), mesh_lib.rank()
@@ -349,7 +347,8 @@ def train(
                           action_repeat=action_repeat),
         make_policy(deterministic=deterministic_eval),
         num_eval_envs=num_eval_envs, episode_length=episode_length,
-        action_repeat=action_repeat, generator=eval_gen)
+        action_repeat=action_repeat, generator=eval_gen,
+        cuda_graphs=cuda_graphs)
 
     def params_of(ts):
         return ts.normalizer_params, ts.params["policy"]

@@ -38,7 +38,7 @@ import dataclasses
 import json
 import sys
 import time
-from typing import Callable, Iterator, List, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -122,6 +122,25 @@ def copy_(dst, src) -> None:
         ss.append(s)
     if ds:
         torch._foreach_copy_(ds, ss)
+
+
+def enabled(cuda_graphs: Optional[bool], device, what: str) -> bool:
+    """Whether ``what`` replays CUDA graphs: ``cuda_graphs`` None means on
+    a CUDA device; True on another device raises."""
+    on_cuda = torch.device(device).type == "cuda"
+    if cuda_graphs is None:
+        return on_cuda
+    if cuda_graphs and not on_cuda:
+        raise ValueError(f"{what}: cuda_graphs=True needs a CUDA device, got "
+                         f"{str(device)!r}; the CPU runs eagerly")
+    return bool(cuda_graphs)
+
+
+def capture_s(state_graphs) -> float:
+    """Seconds of the captures and instantiations of StateGraphs (those
+    captured so far)."""
+    return sum(g.report["capture_s"] + g.report["instantiate_s"]
+               for g in state_graphs if g.report)
 
 
 def require_cuda(x, what: str) -> None:
