@@ -385,7 +385,8 @@ def test_graphed_eval_callback_matches_eager(graphs_on_the_cpu):
     """EvalCallback.rollout graphed against eager over two calls from one
     generator reseeded (stopping at done, and with the noise kinds given),
     every series bit for bit; each step's qpos lands in its own row (the
-    graph's outputs are one static tensor, overwritten each replay)."""
+    graph's outputs are one static tensor, overwritten each replay); the
+    callers' policy modules keep their own weights."""
     from vnl_tpu_torch.training.eval_callback import EvalCallback
     env = make_twin_env(device="cpu", fused_position=False,
                         physics_steps_per_control_step=2)
@@ -398,18 +399,22 @@ def test_graphed_eval_callback_matches_eager(graphs_on_the_cpu):
         cb = EvalCallback(env, "", episode_length=EVAL_STEPS, plots=False,
                           cuda_graphs=cuda_graphs)
         gen = torch.Generator()
-        out = []
+        out, keepers = [], []
         for call in range(2):
             keeper = compat.policy_from_numpy(compat.KEEPER_POLICY,
                                               device="cpu")
             with torch.no_grad():
                 keeper.action_head.bias.add_(0.1 * call)
+            keepers.append((keeper, {k: v.clone() for k, v in
+                                     keeper.state_dict().items()}))
             for stop, noise in ((False, None), (True, None), (False, given)):
                 traj = cb.rollout(keeper, gen.manual_seed(call), noise,
                                   stop_at_done=stop)
                 out.append({k: torch.as_tensor(np.asarray(v))
                             for k, v in traj.items()})
         assert len(cb._graphs) == (2 if cuda_graphs else 0)
+        for keeper, before in keepers:
+            _assert_bits_equal(keeper.state_dict(), before)
         runs.append(out)
     _assert_bits_equal(runs[1], runs[0])
     qpos = runs[1][0]["qpos"]

@@ -91,14 +91,13 @@ def env_args(cfg: Dict, lib, device) -> Dict:
 
 
 def run(num_envs: int = NUM_ENVS, sizes: Sequence[int] = SIZES,
-        device="cuda", cuda_graphs: Optional[bool] = None,
-        steps: int = STEPS, samples: int = SAMPLES, warmup: int = 1,
-        cfg: Optional[Dict] = None) -> List[Dict]:
+        device="cuda", steps: int = STEPS, samples: int = SAMPLES,
+        warmup: int = 1, cfg: Optional[Dict] = None) -> List[Dict]:
     """The probe: one row a library size with the tool's numbers and the
     final state of the last sample (``state``); every sample resets from
-    a generator seeded with 0 (the tool's PRNGKey(0)).  ``cuda_graphs``
-    (None: on a CUDA device) replays each control step as a CUDA graph;
-    the CPU steps eagerly (the tests, at a few envs)."""
+    a generator seeded with 0 (the tool's PRNGKey(0)).  On a CUDA device
+    each control step is a replay of a CUDA graph; the CPU steps eagerly
+    (the tests, at a few envs)."""
     from vnl_tpu_torch.envs import StateGraph, wrap_for_training
     from vnl_tpu_torch.envs.rodent import (RodentMultiClipTracking,
                                            _split_compile_args,
@@ -106,7 +105,6 @@ def run(num_envs: int = NUM_ENVS, sizes: Sequence[int] = SIZES,
     from vnl_tpu_torch.ops import launch_counts
     from vnl_tpu_torch.utils import graphs, load_config
     cfg = cfg if cfg is not None else load_config(TWIN_CONFIG)
-    cuda_graphs = graphs.enabled(cuda_graphs, device, "bench_cliplib")
     compile_kw, _ = _split_compile_args(dict(cfg["env"]["env_args"],
                                              device=device))
     model = compile_rodent(**compile_kw)
@@ -131,7 +129,7 @@ def run(num_envs: int = NUM_ENVS, sizes: Sequence[int] = SIZES,
             return env.step(state, a), None
 
         step = StateGraph(draw_and_step, f"cliplib_step_{n_clips}", [gen]) \
-            if cuda_graphs else draw_and_step
+            if cuda else draw_and_step
 
         def sample():
             state = env.reset(num_envs, generator=gen.manual_seed(0))
@@ -150,8 +148,8 @@ def run(num_envs: int = NUM_ENVS, sizes: Sequence[int] = SIZES,
             launches.append({k: launch_counts.get(k, 0) - before.get(k, 0)
                              for k in ("position", "cg", "sweep")})
         best = min(seconds[1 + warmup:])
-        report = step.report if cuda_graphs else None
-        capture_s = graphs.capture_s([step]) if cuda_graphs else 0.0
+        report = step.report if cuda else None
+        capture_s = graphs.capture_s([step]) if cuda else 0.0
         row = dict(clips=lib.num_clips, clip_length=lib.clip_length,
                    library_mb=library_mb(lib),
                    env_steps_per_s=num_envs * steps / best,

@@ -58,22 +58,20 @@ def newest_checkpoint(root: str = "model_checkpoints") -> Optional[str]:
 
 
 def rollout(params_or_path, cfg: Optional[Dict] = None, device="cuda",
-            steps: Optional[int] = None, noise: Optional[Dict] = None,
-            cuda_graphs: Optional[bool] = None):
+            steps: Optional[int] = None, noise: Optional[Dict] = None):
     """The deterministic episode (EvalCallback.rollout, stopping at done)
     of up to ``steps`` control steps on the eval env; returns (its
     series, the callback, which also gives the overlay's inputs).
     ``noise`` fixes the draws as EvalCallback.rollout takes them; else
-    they come from a generator seeded with 0.  ``cuda_graphs`` (None: on
-    a CUDA device) replays each control step as a CUDA graph."""
+    they come from a generator seeded with 0.  On a CUDA device each
+    control step is a replay of a CUDA graph; the CPU steps eagerly."""
     cfg = cfg if cfg is not None else load_config(eval_checkpoint.TWIN_CONFIG)
     policy, _, _ = eval_checkpoint.load_policy(params_or_path, device)
     env = build_env(cfg, for_eval=True, device=device)
     args = cfg["env"]["env_args"]
     steps = steps or (args["clip_length"] - args.get("ref_traj_length", 5)
                       - 1)
-    cb = EvalCallback(env, model_path="", episode_length=steps, plots=False,
-                      cuda_graphs=cuda_graphs)
+    cb = EvalCallback(env, model_path="", episode_length=steps, plots=False)
     gen = torch.Generator(device=device).manual_seed(RENDER_SEED)
     return cb.rollout(policy, gen, noise, stop_at_done=True), cb
 
@@ -108,16 +106,14 @@ def write_diag(path: str, rewards, rtrunk) -> str:
 
 def render(params_or_path, out_prefix: str, cfg: Optional[Dict] = None,
            device="cuda", skin="auto", steps: Optional[int] = None,
-           noise: Optional[Dict] = None,
-           cuda_graphs: Optional[bool] = None) -> Dict:
+           noise: Optional[Dict] = None) -> Dict:
     """:func:`rollout`, the diag PNG and the overlay video (``skin``: a
     .skn path, a render.skin.Skin, "auto" for the model's own or None).
     Returns the series, the paths, the overlay frames (a uint8 tensor on
     the device) and the seconds of the rollout (its graph's capture
     included, ``capture_s``) and of the overlay."""
     t0 = time.perf_counter()
-    traj, cb = rollout(params_or_path, cfg, device, steps, noise,
-                       cuda_graphs)
+    traj, cb = rollout(params_or_path, cfg, device, steps, noise)
     rollout_s = time.perf_counter() - t0
     diag = write_diag(out_prefix + "_diag.png", traj["reward"],
                       traj["rtrunk"])

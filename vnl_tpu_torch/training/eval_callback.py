@@ -32,6 +32,7 @@ whose predecessor's video is still being rendered skips its own
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import functools
 import os
 import time
@@ -62,7 +63,7 @@ class EvalCallback:
         self._cuda_graphs = graphs.enabled(cuda_graphs, env.sys.device,
                                            "EvalCallback")
         self._generator = None      # every call's, reseeded with the call
-        self._policy = None         # the policy module the graphs read
+        self._policy = None         # the graphs' own copy of the policy
         self._graphs = {}           # by (noise kinds, generator)
         self._render_pool = None
         self._render_stream = None
@@ -114,11 +115,12 @@ class EvalCallback:
     def _graphed_step(self, policy, generator, noise: Dict):
         """(the StateGraph of the episode's step for the noise kinds given
         and this generator, its static noise), made at first use.  The
-        graphs read one policy module: the first one given; a later
-        policy's weights are copied into it in place."""
+        graphs read one policy module of the callback's own, a copy of
+        the first one given; each call's weights are copied into it in
+        place, so a caller's module is never written."""
         if self._policy is None:
-            self._policy = policy
-        elif policy is not self._policy:
+            self._policy = copy.deepcopy(policy)
+        else:
             self._policy.load_state_dict(policy.state_dict())
         kinds = tuple(sorted(noise))
         key = (kinds, id(generator))
