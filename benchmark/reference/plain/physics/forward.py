@@ -1,0 +1,229 @@
+"""Forward dynamics and integration (PyTorch counterpart of
+vnl_tpu/physics/forward.py), batched over envs.
+
+One substep: position stage (FK, com quantities, CRB mass matrix and its
+inverses), collision, constraints, velocity stage, actuation, smooth
+acceleration, the constraint solve (kernel B for CG, solver.py), optional
+sensors, then the model's integrator: Euler with implicit joint damping
+(implicitfast takes the same path), RK4 (three more forward passes a
+step) or full implicit ((M - h qDeriv)^-1 with qDeriv the
+torch.func.jacfwd of the velocity-dependent forces).  The position stage
+has two configurations: fused (kernel A does all of it in one launch, in
+every forward pass, RK4's included) and unfused (kinematics -> com_pos ->
+crb in plain PyTorch, the exact inverses by kernel C or a refinement of
+the carried ones).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from benchmark.reference.plain import math as vmath
+from benchmark.reference.plain.ops import position as position_ops
+from benchmark.reference.plain.ops.linalg import refine_inv_general
+from benchmark.reference.plain.physics import actuation as _actuation
+from benchmark.reference.plain.physics import collision as _collision
+from benchmark.reference.plain.physics import constraint as _constraint
+from benchmark.reference.plain.physics import inertia as _inertia
+from benchmark.reference.plain.physics import kinematics as _kinematics
+from benchmark.reference.plain.physics import rne as _rne
+from benchmark.reference.plain.physics import solver as _solver
+from benchmark.reference.plain.physics.model import Data, IntegratorType, JointType, Model
+
+
+def make_data(m: Model, batch: int, qpos: Optional[torch.Tensor] = None,
+              qvel: Optional[torch.Tensor] = None,
+              dtype=torch.float32) -> Data:
+    """Fresh Data for ``batch`` envs at qpos0 (or the given state)."""
+    nb, nv, dev = m.nbody, m.nv, m.device
+
+    def z(*s):
+        return torch.zeros((batch,) + s, dtype=dtype, device=dev)
+
+    quat0 = z(nb, 4)
+    quat0[..., 0] = 1.0
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    return Data(
+        qpos=(qpos.to(dtype) if qpos is not None
+              else m.qpos0.to(dtype).expand(batch, -1).clone()),
+        qvel=qvel.to(dtype) if qvel is not None else z(nv),
+        act=z(m.na), ctrl=z(m.nu), xpos=z(nb, 3), xquat=quat0,
+        xmat=eye.expand(batch, nb, 3, 3).clone(), xipos=z(nb, 3),
+        xanchor=z(m.njnt, 3), xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
+        geom_xmat=eye.expand(batch, m.ngeom, 3, 3).clone(),
+        subtree_com=z(nb, 3), cinert=z(nb, 6, 6), cdof=z(nv, 6),
+        cvel=z(nb, 6), qM=z(nv, nv), qMinv=z(nv, nv), qMhBinv=z(nv, nv),
+        qfrc_bias=z(nv), qfrc_passive=z(nv), qfrc_actuator=z(nv),
+        actuator_force=z(m.nu), act_dot=z(m.na), qfrc_smooth=z(nv),
+        qacc_smooth=z(nv), qfrc_constraint=z(nv), qacc=z(nv),
+        contact_dist=z(m.ncon_max), contact_pos=z(m.ncon_max, 3),
+        contact_frame=z(m.ncon_max, 3, 3), contact_force=z(m.ncon_max, 4),
+        sensordata=z(m.nsensordata))
+
+
+def fwd_position(m: Model, d: Data, refine_inverse: bool = False,
+                 fused_position: bool = True):
+    """Position stage, collision and constraints.  ``fused_position``
+    chooses kernel A (always exact) over the unfused stage, which alone
+    reads ``refine_inverse`` (see inertia.crb)."""
+    if fused_position:
+        (xpos, xquat, xmat, xipos, xanchor, xaxis, gxp, gxm, scom, cinert,
+         cdof, qM, *invs) = position_ops.position(m, d.qpos.contiguous())
+        d = d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
+                      xanchor=xanchor, xaxis=xaxis, geom_xpos=gxp,
+                      geom_xmat=gxm, subtree_com=scom, cinert=cinert,
+                      cdof=cdof, qM=qM, qMinv=invs[0], qMhBinv=invs[-1])
+    else:
+        d = _kinematics.kinematics(m, d)
+        d = _kinematics.com_pos(m, d)
+        d = _inertia.crb(m, d, refine_inverse=refine_inverse)
+    con_dist, con_pos, con_frame, con_pair = _collision.collide(m, d)
+    d = d.replace(contact_dist=con_dist, contact_pos=con_pos,
+                  contact_frame=con_frame)
+    efc = _constraint.make_constraints(m, d, con_dist, con_pos, con_frame,
+                                       con_pair)
+    return d, efc
+
+
+def fwd_velocity(m: Model, d: Data) -> Data:
+    cvel, cdof_dot = _rne.com_vel(m, d)
+    return d.replace(cvel=cvel, qfrc_bias=_rne.rne(m, d, cvel, cdof_dot),
+                     qfrc_passive=_rne.passive(m, d))
+
+
+def forward(m: Model, d: Data, refine_inverse: bool = False,
+            fused_position: bool = True,
+            compute_sensors: bool = False) -> Data:
+    """Full forward dynamics: derived fields and qacc.  ``refine_inverse``
+    is valid when d is the previous substep's output; ``compute_sensors``
+    evaluates the model's sensors into d.sensordata (off by default, as in
+    the JAX package: the envs read the state directly)."""
+    d, efc = fwd_position(m, d, refine_inverse, fused_position)
+    d = fwd_velocity(m, d)
+    force, qfrc_act, act_dot = _actuation.actuation(m, d)
+    d = d.replace(actuator_force=force, qfrc_actuator=qfrc_act,
+                  act_dot=act_dot)
+    qfrc_smooth = d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
+    qacc_smooth = _inertia.solve_m(d, qfrc_smooth)
+    qacc, qfrc_constraint, con_force = _solver.solve(m, d, efc, qacc_smooth)
+    if not efc.ncon:
+        con_force = qacc.new_zeros(qacc.shape[0], m.ncon_max, 4)
+    elif con_force.shape[-1] == 3:             # elliptic rows -> pad
+        con_force = torch.nn.functional.pad(con_force, (0, 1))
+    d = d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth,
+                  qacc=qacc, qfrc_constraint=qfrc_constraint,
+                  contact_force=con_force)
+    if compute_sensors and m.nsensordata:
+        from benchmark.reference.plain.physics import sensor as _sensor
+        d = d.replace(sensordata=_sensor.sensors(m, d))
+    return d
+
+
+def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
+                   dt: float) -> torch.Tensor:
+    """qpos += dt qvel, with quaternion integration on free/ball joints."""
+    hs = np.isin(m.jnt_type, (int(JointType.HINGE), int(JointType.SLIDE)))
+    new = (qpos.index_add(1, m.index(m.jnt_qposadr[hs]),
+                          dt * qvel[:, m.index(m.jnt_dofadr[hs])])
+           if hs.any() else qpos.clone())
+    for j in np.nonzero(~hs)[0]:
+        qa, va = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
+        if m.jnt_type[j] == JointType.FREE:
+            new[:, qa:qa + 3] = qpos[:, qa:qa + 3] + dt * qvel[:, va:va + 3]
+            new[:, qa + 3:qa + 7] = vmath.quat_integrate(
+                qpos[:, qa + 3:qa + 7], qvel[:, va + 3:va + 6], dt)
+        else:  # BALL
+            new[:, qa:qa + 4] = vmath.quat_integrate(
+                qpos[:, qa:qa + 4], qvel[:, va:va + 3], dt)
+    return new
+
+
+def integrate(m: Model, d: Data) -> Data:
+    """Semi-implicit Euler with implicit joint damping (mj_Euler)."""
+    dt = m.opt.timestep
+    if _inertia.needs_implicit_damping(m):
+        # qvel += dt (M + dt diag(B))^-1 M qacc
+        dv = torch.einsum("nij,nj->ni", d.qMhBinv,
+                          torch.einsum("nij,nj->ni", d.qM, d.qacc))
+        qvel = d.qvel + dt * dv
+    else:
+        qvel = d.qvel + dt * d.qacc
+    act = d.act + dt * d.act_dot if m.na else d.act
+    return d.replace(qpos=_integrate_pos(m, d.qpos, qvel, dt), qvel=qvel,
+                     act=act)
+
+
+def _vel_forces(m: Model, d: Data, qvel: torch.Tensor) -> torch.Tensor:
+    """Velocity-dependent smooth forces at (d.qpos, qvel): passive
+    - bias + actuator."""
+    d2 = d.replace(qvel=qvel)
+    cvel, cdof_dot = _rne.com_vel(m, d2)
+    qfrc_bias = _rne.rne(m, d2, cvel, cdof_dot)
+    _, qfrc_act, _ = _actuation.actuation(m, d2)
+    return _rne.passive(m, d2) - qfrc_bias + qfrc_act
+
+
+def _implicit_integrate(m: Model, d: Data) -> Data:
+    """mj_implicit: qvel += h (M - h qDeriv)^-1 (qfrc_smooth +
+    qfrc_constraint), qDeriv = d(velocity forces)/d qvel by
+    torch.func.jacfwd (the envs are independent, so the Jacobian of the
+    batch sum is each env's own), the inverse by six Newton-Schulz steps
+    seeded with (M + h diag(B))^-1."""
+    h = m.opt.timestep
+    _actuation.activation_mask(m)       # static tables, outside the transform
+    jac = torch.func.jacfwd(lambda v: _vel_forces(m, d, v).sum(0))(d.qvel)
+    A = d.qM - h * jac.permute(1, 0, 2)               # (B, nv, nv)
+    Ainv = refine_inv_general(A, d.qMhBinv, iters=6)
+    qacc = torch.einsum("nij,nj->ni", Ainv, d.qfrc_smooth + d.qfrc_constraint)
+    qvel = d.qvel + h * qacc
+    act = d.act + h * d.act_dot if m.na else d.act
+    return d.replace(qpos=_integrate_pos(m, d.qpos, qvel, h), qvel=qvel,
+                     act=act)
+
+
+_RK4_A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def _rk4(m: Model, d: Data, fused_position: bool = True) -> Data:
+    """Classic 4th-order Runge-Kutta (mj_RungeKutta): d arrives with the
+    first stage's forward dynamics; each further stage runs a full forward
+    pass at the tableau-shifted state.  The state derivative is (qvel,
+    qacc, act_dot); no implicit damping."""
+    h = m.opt.timestep
+    qpos0, qvel0, act0 = d.qpos, d.qvel, d.act
+    F = [(d.qvel, d.qacc, d.act_dot)]
+
+    def comb(coeffs):
+        terms = [(c, F[j]) for j, c in enumerate(coeffs) if c != 0.0]
+        dqvel = sum(c * f[0] for c, f in terms)
+        dqacc = sum(c * f[1] for c, f in terms)
+        dact = sum(c * f[2] for c, f in terms) if m.na else d.act_dot
+        return dqvel, dqacc, dact
+
+    def shifted(coeffs):
+        dqvel, dqacc, dact = comb(coeffs)
+        return dict(qpos=_integrate_pos(m, qpos0, dqvel, h),
+                    qvel=qvel0 + h * dqacc,
+                    act=act0 + h * dact if m.na else act0)
+
+    for i in range(3):
+        d = forward(m, d.replace(**shifted(_RK4_A[i][:i + 1])),
+                    fused_position=fused_position)
+        F.append((d.qvel, d.qacc, d.act_dot))
+    return d.replace(**shifted(_RK4_B))
+
+
+def step(m: Model, d: Data, refine_inverse: bool = False,
+         fused_position: bool = True) -> Data:
+    """One physics step: forward dynamics + the model's integrator (Euler
+    and implicitfast through ``integrate``, RK4, full implicit)."""
+    d = forward(m, d, refine_inverse, fused_position)
+    if m.opt.integrator == int(IntegratorType.IMPLICIT):
+        return _implicit_integrate(m, d)
+    if m.opt.integrator == int(IntegratorType.RK4):
+        return _rk4(m, d, fused_position)
+    return integrate(m, d)
