@@ -10,7 +10,6 @@ inside its scan (acting.py:55), and so does each control step of the
 from __future__ import annotations
 
 import functools
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -19,7 +18,7 @@ import torch
 from vnl_tpu_torch.envs.base import State, StateGraph
 from vnl_tpu_torch.envs.wrappers import EvalWrapper
 from vnl_tpu_torch.training.types import Transition
-from vnl_tpu_torch.utils import graphs
+from vnl_tpu_torch.utils import graphs, profiler
 
 
 def actor_step(env, env_state: State, policy,
@@ -83,11 +82,12 @@ def generate_unroll(env, env_state: State, policy,
                                  extra_fields=tuple(extra_fields))
     state, out = env_state, None
     for t in range(unroll_length):
-        state, tr = step(state)
-        if out is None:
-            out = graphs.map_leaves(
-                lambda x: x.new_empty((unroll_length,) + x.shape), tr)
-        graphs.copy_(graphs.map_leaves(lambda x: x[t], out), tr)
+        with profiler.span("rollout.control_step", device=True):
+            state, tr = step(state)
+            if out is None:
+                out = graphs.map_leaves(
+                    lambda x: x.new_empty((unroll_length,) + x.shape), tr)
+            graphs.copy_(graphs.map_leaves(lambda x: x[t], out), tr)
     return state, out
 
 
@@ -185,15 +185,15 @@ class Evaluator:
         lengths, ``eval/episode_length``.  ``last_state`` keeps the final
         state (a graph's static state, which the next evaluation
         overwrites)."""
-        start = time.time()
-        state = self._run_episodes(noise or {})
-        self.last_state = state
-        tallies = state.info["eval_metrics"]
-        names = list(tallies.episode_metrics)
-        # one readback: the metric sums and the episode lengths together
-        packed = torch.stack([tallies.episode_metrics[n] for n in names]
-                             + [tallies.episode_steps]).cpu().numpy()
-        elapsed = time.time() - start
+        with profiler.timed("eval") as span:
+            state = self._run_episodes(noise or {})
+            self.last_state = state
+            tallies = state.info["eval_metrics"]
+            names = list(tallies.episode_metrics)
+            # one readback: the metric sums and the episode lengths together
+            packed = torch.stack([tallies.episode_metrics[n] for n in names]
+                                 + [tallies.episode_steps]).cpu().numpy()
+        elapsed = span.seconds
         self._walltime += elapsed
 
         out = {"eval/walltime": self._walltime, **training_metrics}

@@ -23,6 +23,14 @@ minibatch gathers of a pass stay outside the graphs.  The graphed run
 computes what the eager one computes (``cuda_graphs=False``), draw for
 draw from the same generators.
 
+Spans (utils/profiler.py): a training step is a ``train.step`` span, its
+id counted from 0 at this call's first step, holding ``train.rollout``,
+``train.normalizer``, ``train.sgd`` and ``train.stats``; the logged
+``training/sps``, ``training/rollout_s_per_step`` and
+``training/sgd_s_per_step`` are read off them.  Inside a
+``profiler.recording`` the spans are kept, and the device spans also time
+the device.
+
 Checkpoints (``checkpoint_dir``, ``restore_checkpoint_path``) hold the
 full TrainingState (training/checkpoint.py).  A checkpoint is written after
 every interval, holding the state at the env steps it is named by; the
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import logging
 import time
 from typing import Callable, Dict, List, Optional
@@ -61,7 +70,7 @@ from vnl_tpu_torch.training import (acting, checkpoint, gradients,
                                     running_statistics)
 from vnl_tpu_torch.training import losses as ppo_losses
 from vnl_tpu_torch.training.types import Transition
-from vnl_tpu_torch.utils import graphs
+from vnl_tpu_torch.utils import graphs, profiler
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -102,8 +111,9 @@ def collect_rollouts(env, env_state, policy, generator, unroll_length: int,
             env, env_state, policy, generator, unroll_length,
             extra_fields=EXTRA_FIELDS, step=step)
         chunks.append(chunk)
-    batch = acting.tree_map(
-        lambda *xs: torch.cat([x.transpose(0, 1) for x in xs]), *chunks)
+    with profiler.span("rollout.concat", device=True):
+        batch = acting.tree_map(
+            lambda *xs: torch.cat([x.transpose(0, 1) for x in xs]), *chunks)
     return env_state, batch
 
 
@@ -141,15 +151,17 @@ def sgd_pass(update_step: Callable, batch: Transition, num_minibatches: int,
     stats)`` to each in turn.  Returns the stats of every update.  The
     shuffle and the gathers run once a pass, outside a graphed update."""
     n_rows = batch.observation.shape[0]
-    if order is None:
-        order = torch.randperm(n_rows, generator=generator,
-                               device=batch.observation.device)
-    shuffled = acting.tree_map(
-        lambda x: x[order].reshape((num_minibatches, -1) + x.shape[1:]),
-        batch)
+    with profiler.span("sgd.shuffle", device=True):
+        if order is None:
+            order = torch.randperm(n_rows, generator=generator,
+                                   device=batch.observation.device)
+        shuffled = acting.tree_map(
+            lambda x: x[order].reshape((num_minibatches, -1) + x.shape[1:]),
+            batch)
     stats = []
     for i in range(num_minibatches):
-        _, s = update_step(acting.tree_map(lambda x: x[i], shuffled))
+        with profiler.span("sgd.update", device=True):
+            _, s = update_step(acting.tree_map(lambda x: x[i], shuffled))
         stats.append(s)
     return stats
 
@@ -275,32 +287,40 @@ def train(
         training_state = snapshot(restored.normalizer_params,
                                   restored.env_steps)
 
+    step_ids = itertools.count()      # training steps, from 0
+
     def one_training_step(ts: TrainingState, env_state):
         _sync(device)
-        t0 = time.perf_counter()
-        env_state, batch = collect_rollouts(
-            env, env_state, policy, gen, unroll_length, rollouts_per_step,
-            step=actor)
-        _sync(device)
-        t1 = time.perf_counter()
-        normalizer_params = running_statistics.update(
-            ts.normalizer_params, batch.observation,
-            data_parallel=data_parallel)
-        if normalize_observations:
-            ppo_network.set_normalizer(normalizer_params)
-        stats = []
-        for _ in range(num_updates_per_batch):
-            stats += sgd_pass(update_step, batch, num_minibatches, gen)
-        # every update's stats as one row, so that the interval reads
-        # them back in a single transfer
-        rows = torch.stack([torch.stack([s[n] for n in sorted(s)])
-                            for s in stats])
-        _sync(device)
-        t2 = time.perf_counter()
+        with profiler.timed("train.step", step=next(step_ids)) as step:
+            with profiler.timed("train.rollout") as rollout:
+                env_state, batch = collect_rollouts(
+                    env, env_state, policy, gen, unroll_length,
+                    rollouts_per_step, step=actor)
+                _sync(device)
+            with profiler.span("train.normalizer", device=True):
+                normalizer_params = running_statistics.update(
+                    ts.normalizer_params, batch.observation,
+                    data_parallel=data_parallel)
+                if normalize_observations:
+                    ppo_network.set_normalizer(normalizer_params)
+            with profiler.timed("train.sgd"):
+                stats = []
+                for _ in range(num_updates_per_batch):
+                    stats += sgd_pass(update_step, batch, num_minibatches,
+                                      gen)
+            # every update's stats as one row, so that the interval reads
+            # them back in a single transfer
+            with profiler.span("train.stats", device=True):
+                rows = torch.stack([torch.stack([s[n] for n in sorted(s)])
+                                    for s in stats])
+            _sync(device)
         ts = dataclasses.replace(
             ts, normalizer_params=normalizer_params,
             env_steps=ts.env_steps + steps_per_training_step)
-        return ts, env_state, rows, (t1 - t0, t2 - t1)
+        # seconds of the step, of its rollout, and of the rest: the
+        # normaliser, the SGD and the stats
+        return ts, env_state, rows, (step.seconds, rollout.seconds,
+                                     step.seconds - rollout.seconds)
 
     stat_names = sorted(("total_loss", "policy_loss", "v_loss",
                          "entropy_loss", "kl_loss_intention",
@@ -322,10 +342,9 @@ def train(
         stats_host = stats.cpu().numpy()
         elapsed = time.time() - t0
         training_walltime += elapsed
-        rollout_s, sgd_s = np.mean(times, axis=0)
+        step_s, rollout_s, sgd_s = np.mean(times, axis=0)
         metrics = {
-            "training/sps":
-                steps_per_interval * steps_per_training_step / elapsed,
+            "training/sps": steps_per_training_step / step_s,
             "training/walltime": training_walltime,
             "training/rollout_s_per_step": float(rollout_s),
             "training/sgd_s_per_step": float(sgd_s),

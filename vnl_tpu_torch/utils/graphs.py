@@ -44,6 +44,7 @@ import torch
 
 from vnl_tpu_torch.ops import ReplayCounts, launch_counts
 from vnl_tpu_torch.parallel.mesh import collective_counts
+from vnl_tpu_torch.utils import profiler
 
 # every capture's report, in order: name, capture and instantiate
 # seconds, the graph's node count, its pool's bytes and the launches a
@@ -197,20 +198,26 @@ class Graph:
         for g in generators:
             self._graph.register_generator_state(g)
         self._counts = ReplayCounts(launch_counts, collective_counts)
-        t0 = time.perf_counter()
-        # thread_local: a render job's thread may use the device meanwhile
-        with self._counts.record(), torch.cuda.graph(
-                self._graph, capture_error_mode="thread_local"):
-            self.outputs = fn(*self.args)
-        t1 = time.perf_counter()
-        self._graph.instantiate()
-        t2 = time.perf_counter()
+        with profiler.span("graph.capture") as span:
+            t0 = time.perf_counter()
+            # thread_local: a render job's thread may use the device
+            # meanwhile
+            with self._counts.record(), torch.cuda.graph(
+                    self._graph, capture_error_mode="thread_local"):
+                self.outputs = fn(*self.args)
+            t1 = time.perf_counter()
+            self._graph.instantiate()
+            t2 = time.perf_counter()
         launches, collectives = self._counts.deltas
+        self._nodes = _node_count(self._graph)
         self.report = dict(
             name=name, capture_s=t1 - t0, instantiate_s=t2 - t1,
-            nodes=_node_count(self._graph), pool_bytes=_pool_bytes(self._graph),
+            nodes=self._nodes, pool_bytes=_pool_bytes(self._graph),
             launches_per_replay=dict(launches),
             collectives_per_replay=dict(collectives))
+        if span is not None:
+            span.attrs = dict(graph=name, nodes=self._nodes,
+                              pool_bytes=self.report["pool_bytes"])
         REPORTS.append(self.report)
         print(json.dumps({"cuda_graph": self.report}), file=sys.stdout,
               flush=True)
@@ -218,4 +225,5 @@ class Graph:
     def replay(self):
         self._graph.replay()
         self._counts.replayed()
+        profiler.count("graph_nodes", self._nodes)
         return self.outputs
