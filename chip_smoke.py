@@ -15,7 +15,12 @@ Phases, in order; any failure exits non-zero:
      then the widest route, cg_kernel<0>, on 1024 twin contact systems
      padded with 240 inactive contacts (1,052 contact rows; no scene of
      the repo has that many, so no path launches it) by check_cg, with a
-     row of its own;
+     row of its own; then kernel D (the constraint system of a substep,
+     kernel B's inputs) against its plain version (make_constraints and
+     cg_inputs' packing) on 1024 twin contact states and on 1024 with
+     contacts and limit rows near, at and past where they act (rtol 1e-5,
+     atol 1e-5 of each output's largest entry), bit for bit across two
+     launches, timed at 1024 and 128 envs, with a row of its own;
   4. the slice: RodentTracking (twin + clip) reset for 1024 envs and a
      20-control-step generate_unroll (100 physics substeps) with the keeper
      policy, sampling from a seeded generator, each control step one
@@ -74,7 +79,9 @@ Phases, in order; any failure exits non-zero:
      budget of twice the envs the plain solve itself misses when re-run
      in float32 at one rounding, plus 0.5% (check_cg's own rule is met by
      no float32 evaluation on these states); each also bit for bit
-     across two launches; one line with the stage split of A and B at
+     across two launches; kernel D on humanoid contact states as in
+     phase 3 (ncon 177, condim 1 and 3; its launches also counted on the
+     rollouts below); one line with the stage split of A and B at
      these shapes (and, with --old, both trees' times); HumanoidTracking and
      HumanoidStanding, wrapped for training, reset for 1024 envs and
      driven 20 control steps (graphed, as in 4) by a freshly initialised
@@ -183,7 +190,7 @@ Phases, in order; any failure exits non-zero:
      stepping bench eager and graphed,
      final states equal bit for bit; the launch counts of each pair equal;
      one more replay of each rollout's control-step graph traced with
-     torch.profiler, its kernels A, B and C equal to the launches the
+     torch.profiler, its kernels A, B, C and D equal to the launches the
      capture counts a replay (the counts a replay adds are those the
      device ran);
      then vnl_tpu_torch.profile_rollout and profile_train (fused; the
@@ -203,8 +210,8 @@ Phases, in order; any failure exits non-zero:
      {"cliplib_humanoid": ...} line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
-twin's A, B and C; B's widest route on the padded twin; A and B at the
-humanoid's shapes; A and C at the ant's; C at the humanoid's pair) with
+twin's A, B, D and C; B's widest route on the padded twin; A, B and D at
+the humanoid's shapes; A and C at the ant's; C at the humanoid's pair) with
 its launches on the paths that run that shape (phase 14 counts for each
 scene it runs; for B's widest route, ops.launch_counts["cg_widest"]
 summed over every path the run drives, which must be 0: no scene has
@@ -415,6 +422,73 @@ def phase_kernel_b(m, gen, name="cg", other_batches=OTHER_BATCHES,
         dict(errs, active_contacts=active, ncon=st.ncon, nlimit=st.nlimit)
 
 
+def constraints_bytes(m, batch, nlimit, ncon, nroot):
+    """Bytes kernel D moves for ``batch`` envs: reads qpos at the limit
+    rows, qvel, cdof, the subtree coms of the contacts' roots and the
+    contacts; writes g36 and the row arrays (the tables, one copy for
+    every env, stay in L2)."""
+    reads = nlimit + 7 * m.nv + 3 * nroot + 13 * ncon
+    writes = 36 * ncon + 4 * max(nlimit, 1) + 9 * ncon
+    return 4 * batch * (reads + writes)
+
+
+def phase_kernel_d(m, gen, name="constraints", press=0.005):
+    """Kernel D against its plain version on BATCH contact states of ``m``
+    (the root lowered by ``press``) and on BATCH with the edges of
+    kernel_bench.constraint_states, and bit for bit across two launches;
+    timed at BATCH and 128 envs.  Returns (kernels row, errors)."""
+    from vnl_tpu_torch.kernel_bench import (QUEUED, constraint_states,
+                                            time_ms)
+    from vnl_tpu_torch.ops import constraints as con_ops
+    errs, timed = {}, {}
+    for edges in (False, True):
+        args = (m,) + constraint_states(m, BATCH, gen, press, edges)
+        ker = con_ops.constraints(*args)
+        plain = con_ops.constraints_plain(*args)
+        torch.cuda.synchronize()
+        for out, k, p in zip(con_ops.OUTPUT_NAMES, ker, plain):
+            e = check_close(out, k, p, 1e-5, 1e-5 * float(p.abs().max()))
+            errs[f"{out}_edges" if edges else out] = e
+        errs["g36_same_bits" + ("_edges" if edges else "")] = \
+            bool(torch.equal(ker[0], plain[0]))
+        same_bits(name, ker, con_ops.constraints(*args))
+    for batch in (BATCH, 128):
+        args = (m,) + constraint_states(m, batch, gen, press)
+        timed[batch] = (
+            time_ms(lambda: con_ops.constraints(*args), queued=QUEUED),
+            time_ms(lambda: con_ops.constraints_plain(*args), reps=5))
+    pair = args[-1]
+    t = con_ops.kernel_tables(m, pair)
+    nlimit, ncon = len(t["lim_dof"]), len(pair)
+    nroot = len(np.unique(t["con_int"][:2]))
+    b_ms, b_by = bound_ms(constraints_bytes(m, BATCH, nlimit, ncon, nroot),
+                          0)
+    res = con_ops.resources(m, pair)
+    row = dict(name=name, kernel="constraints", route="cuda",
+               shape=dict(batch=BATCH, nv=m.nv, ncon=ncon, nlimit=nlimit,
+                          groups=len(t["grp_start"]) - 1),
+               source="vnl_tpu_torch/csrc/constraints.cu",
+               replaces="vnl_tpu_torch/physics/constraint.py "
+                        "make_constraints + solver.py cg_inputs",
+               max_abs_err=max(v for v in errs.values()
+                               if not isinstance(v, bool)),
+               ms=timed[BATCH][0], plain_ms=timed[BATCH][1],
+               ms_128=timed[128][0], plain_ms_128=timed[128][1],
+               bound_ms=b_ms, bound_by=b_by,
+               bound_ms_128=bound_ms(constraints_bytes(
+                   m, 128, nlimit, ncon, nroot), 0)[0],
+               library_ms=None, regs=res["regs"],
+               smem_bytes=res["smem_bytes"],
+               blocks_per_sm=res["blocks_per_sm"],
+               local_bytes=res["local_bytes"],
+               spill_bytes=spill_bytes("constraints"))
+    print(json.dumps({"kernel_d": {k: row[k] for k in (
+        "name", "shape", "max_abs_err", "ms", "ms_128", "plain_ms",
+        "plain_ms_128", "bound_ms", "bound_ms_128", "regs", "local_bytes",
+        "blocks_per_sm")}}), flush=True)
+    return row, errs
+
+
 WIDEST_PAD = 240      # inactive contacts added to the twin's 23: 1,052 rows
 
 
@@ -505,14 +579,15 @@ def unroll(env, make_policy, graphed, again=False):
     return out
 
 
-# the launch counters of kernels A, B and C, and the group by which
+# the launch counters of kernels A, B, C and D, and the group by which
 # profile_rollout.device_groups names each kernel's routes
 COUNTED_GROUPS = (("position", "kernel A (position)"),
-                  ("cg", "kernel B (cg)"), ("sweep", "kernel C (sweep)"))
+                  ("cg", "kernel B (cg)"), ("sweep", "kernel C (sweep)"),
+                  ("constraints", "kernel D (constraints)"))
 
 
 def profiled_launches(run) -> dict:
-    """The launches of kernels A, B and C on the device while ``run()``
+    """The launches of kernels A, B, C and D on the device while ``run()``
     runs, by launch counter, counted in a torch.profiler trace of it: for
     a graph replay, the kernels that really ran, beside the counts that
     ops.ReplayCounts adds for it from its capture."""
@@ -1088,13 +1163,16 @@ def phase_humanoid(device, trees=None):
             row_b["shape"]["instantiation"] != "cg_wide_kernel<3,1>":
         raise AssertionError(f"kernels A, B on the humanoid: "
                              f"{row_a['shape']}, {row_b['shape']}")
+    row_d, errs_d = phase_kernel_d(m, gen, "constraints_humanoid",
+                                   press=HUMANOID_PRESS)
     print_split("humanoid", m, trees)
     print(json.dumps({"kernel_b_humanoid": dict(
         row_b["shape"], active_contacts=errs_b["active_contacts"],
         **{k: errs_b[k] for k in ("far_envs", "off_envs", "budget_far",
                                   "budget_off", "rerun_far_off")},
         ms=row_b["ms"], plain_ms=row_b["plain_ms"])}), flush=True)
-    need = {"position": UNROLL * 5, "cg": UNROLL * 5}
+    need = {"position": UNROLL * 5, "cg": UNROLL * 5,
+            "constraints": UNROLL * 5}
     c_track, rep["tracking"] = env_rollout(
         HumanoidTracking(device=device), device, need, (55, 630))
     c_stand, rep["standing"] = env_rollout(
@@ -1114,8 +1192,9 @@ def phase_humanoid(device, trees=None):
                              "params")
     rep["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"humanoid": rep}), flush=True)
-    return ([row_a, row_b], add_counts(c_track, c_stand, c_cli), rep,
-            {"position_humanoid": errs_a, "cg_humanoid": errs_b})
+    return ([row_a, row_b, row_d], add_counts(c_track, c_stand, c_cli),
+            rep, {"position_humanoid": errs_a, "cg_humanoid": errs_b,
+                  "constraints_humanoid": errs_d})
 
 
 def phase_ant(device, trees=None):
@@ -1896,7 +1975,7 @@ def eval_metrics(metrics) -> dict:
 
 def replay_profiled(tag, graph) -> dict:
     """One more replay of an envs.StateGraph traced with torch.profiler:
-    the kernels A, B and C it ran must be the launches its capture counts
+    the kernels A, B, C and D it ran must be the launches its capture counts
     a replay.  Returns them."""
     per_replay = {counter: graph.report["launches_per_replay"].get(
         counter, 0) for counter, _ in COUNTED_GROUPS}
@@ -2262,6 +2341,7 @@ def main() -> int:
     row_a, errs_a = phase_kernel_a(m, gen)
     row_b, errs_b = phase_kernel_b(m, gen)
     row_bw, errs_bw = phase_kernel_b_widest(m, gen)
+    row_d, errs_d = phase_kernel_d(m, gen)
     counts, info["rollout"] = phase_rollout(device)
     row_c, errs_c = phase_kernel_c(m, gen)
     counts_fused, info["training_fused"] = phase_training(True, steps=2)
@@ -2288,7 +2368,8 @@ def main() -> int:
                           counts_graphs["humanoid"], counts_run_h)
     counts_ant = add_counts(counts_ant, counts_num["ant"],
                             counts_graphs["ant"])
-    kernels = [row_a, row_b, row_bw, row_c] + rows_h + rows_ant + [row_ch]
+    kernels = [row_a, row_b, row_bw, row_d, row_c] + rows_h + rows_ant + \
+        [row_ch]
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
         # phases 4, 6, 7, 11, 12, 13, 14, 15, 16; the humanoid's: 8, 14,
@@ -2312,7 +2393,8 @@ def main() -> int:
             raise AssertionError(f"kernel {row['name']} never launched on "
                                  "its paths")
     info["details"] = dict({"position": errs_a, "cg": errs_b,
-                            "cg_widest": errs_bw, "sweep": errs_c},
+                            "cg_widest": errs_bw, "constraints": errs_d,
+                            "sweep": errs_c},
                            **errs_h, **errs_ant)
 
     from vnl_tpu_torch.bench import gpu_name_and_power_limit

@@ -1,4 +1,4 @@
-"""Kernels A, B and C against their plain PyTorch versions on a CUDA device
+"""Kernels A, B, C and D against their plain PyTorch versions on a CUDA device
 (marked ``cuda``; skipped without a card, since a CUDA kernel has no CPU
 mode); the renderer and the egocentric camera on the card against the
 same code on the CPU; and the trainer under a one-rank NCCL process group
@@ -16,6 +16,7 @@ import torch
 
 from vnl_tpu_torch import compat, kernel_bench
 from vnl_tpu_torch.ops import cg as cg_ops
+from vnl_tpu_torch.ops import constraints as con_ops
 from vnl_tpu_torch.ops import launch_counts
 from vnl_tpu_torch.ops import position as pos_ops
 from vnl_tpu_torch.ops import sweep as sweep_ops
@@ -84,9 +85,15 @@ def _check_position(m, qpos):
 
 
 def _cg_args(m, qpos, qvel):
+    """Kernel B's inputs on make_constraints' system (kernel D's differs
+    from it by a rounding; kernel_bench._solve_inputs says why)."""
+    from vnl_tpu_torch.physics import collision, constraint
     batch = qpos.shape[0]
     d = forward.make_data(m, batch, qpos=qpos, qvel=qvel)
-    d, efc = forward.fwd_position(m, d)
+    d, _ = forward.fwd_position(m, d)
+    efc = constraint.make_constraints(m, d, d.contact_dist, d.contact_pos,
+                                      d.contact_frame,
+                                      collision.pair_expansion(m))
     d = forward.fwd_velocity(m, d)
     _, qfrc_act, _ = actuation.actuation(m, d)
     qacc_smooth = inertia.solve_m(d, d.qfrc_passive - d.qfrc_bias + qfrc_act)
@@ -234,6 +241,91 @@ def test_cg_kernel_widest_system(model):
     _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
 
 
+def _check_constraints(m, batch, press=0.005, edges=False, seed=0):
+    """Kernel D against make_constraints -> cg_inputs' packing on the card:
+    every output within rtol 1e-5 and atol 1e-5 of its largest entry
+    (float32 rounding: the kernel sums a chain and a G row in an order of
+    its own), one launch counted, and the same bits from a second launch.
+    Returns the kernel's outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, dist, cpos, frame, pair = kernel_bench.constraint_states(
+        m, batch, gen, press, edges)
+    before = launch_counts["constraints"]
+    got = con_ops.constraints(m, d, dist, cpos, frame, pair)
+    assert launch_counts["constraints"] == before + 1
+    want = con_ops.constraints_plain(m, d, dist, cpos, frame, pair)
+    for name, g, w in zip(con_ops.OUTPUT_NAMES, got, want):
+        assert g.shape == w.shape, name
+        _close(g, w, 1e-5, 1e-5 * float(w.abs().max()), name)
+    again = con_ops.constraints(m, d, dist, cpos, frame, pair)
+    for name, g, a in zip(con_ops.OUTPUT_NAMES, got, again):
+        assert torch.equal(g, a), name
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 128, 1024])
+def test_constraints_kernel_matches_plain(model, batch):
+    _check_constraints(model, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["twin", "direct_solref_margin_gap"])
+def test_constraints_kernel_edges(model, variant):
+    """Contacts near, at and past margin - gap and limit rows on both sides
+    of their ranges (both branches of the impedance sigmoid and the
+    inactive one); on the variant, half the contacts and limits in _kb's
+    direct format and margin 2e-3, gap 5e-4."""
+    m = model
+    if variant != "twin":
+        pref, jref = m.pair_solref.clone(), m.jnt_solref.clone()
+        pref[::2] = torch.tensor([-5000.0, -30.0], device="cuda")
+        jref[::2] = torch.tensor([-2000.0, -20.0], device="cuda")
+        m = dataclasses.replace(
+            m, cache={}, pair_solref=pref, jnt_solref=jref,
+            pair_margin=torch.full_like(m.pair_margin, 2e-3),
+            pair_gap=torch.full_like(m.pair_gap, 5e-4))
+    _check_constraints(m, 128, edges=True, seed=1)
+
+
+@pytest.mark.cuda
+def test_constraints_kernel_humanoid(humanoid):
+    """ncon 177 (two trips of the block over the contact slots), condim 1
+    and 3, contacts between two moving bodies."""
+    _check_constraints(humanoid, 256, press=0.3, seed=2)
+    _check_constraints(humanoid, 256, press=0.3, edges=True, seed=3)
+
+
+@pytest.mark.cuda
+def test_constraints_kernel_contact_only(model):
+    """No limit: the kernel writes kernel B's inert row (sign 0, D 0); the
+    box chain solved by CG."""
+    from vnl_tpu_torch.physics.model import SolverType
+    m = compat.model_from_numpy(compat.BOX_CHAIN_MODEL, device="cuda")
+    m = dataclasses.replace(m, cache={}, opt=dataclasses.replace(
+        m.opt, solver=int(SolverType.CG)))
+    got = _check_constraints(m, 5, press=0.0, edges=True)
+    for row in got[1:5]:
+        assert row.shape == (5, 1) and not bool(row.any())
+
+
+@pytest.mark.cuda
+def test_constraints_launches_a_control_step(model, ant):
+    """Kernel D runs once a substep where kernel B solves: n_frames times a
+    twin control step; never on the ant (Newton)."""
+    from vnl_tpu_torch.envs import AntTracking, make_twin_env
+    for env, want in ((make_twin_env(device="cuda"), 5),
+                      (AntTracking(device="cuda"), 0)):
+        assert env.n_frames == 5
+        state = env.reset(B, generator=torch.Generator(
+            device="cuda").manual_seed(6))
+        launch_counts.clear()
+        state = env.step(state, torch.zeros(B, env.action_size,
+                                            device="cuda"))
+        assert launch_counts["constraints"] == want
+        assert bool(torch.isfinite(state.pipeline_state.qpos).all())
+
+
 # the one-warp route (n = 1, 14, 16 on T = 16; 17, 27, 29, 32 on T = 32),
 # every register tile (64, 73, 96) and the shared-memory route (97, 120),
 # odd and even matrix counts, and the twin's stacked pair
@@ -281,16 +373,16 @@ def test_sweep_kernel_matches_plain(model, n, count):
 
 @pytest.mark.cuda
 def test_unfused_step_launches_kernel_c(model):
-    """One control step of the unfused stage: kernel C once, kernel B on
-    every substep, kernel A never."""
+    """One control step of the unfused stage: kernel C once, kernels D and
+    B on every substep, kernel A never."""
     from vnl_tpu_torch.envs.base import PipelineEnv
     qpos, qvel = _states(model, press=0.005)
     env = PipelineEnv(model, n_frames=5, fused_position=False)
     launch_counts.clear()
     d = env.pipeline_init(qpos, qvel)
-    assert dict(launch_counts) == {"sweep": 1, "cg": 1}
+    assert dict(launch_counts) == {"sweep": 1, "constraints": 1, "cg": 1}
     d = env.pipeline_step(d, torch.zeros(B, model.nu, device="cuda"))
-    assert dict(launch_counts) == {"sweep": 2, "cg": 6}
+    assert dict(launch_counts) == {"sweep": 2, "constraints": 6, "cg": 6}
     assert bool(torch.isfinite(d.qpos).all())
 
 
@@ -308,6 +400,16 @@ def test_wrappers_reject_bad_inputs(model):
                                             dtype=torch.float64))
     with pytest.raises(ValueError):     # one matrix must fit shared memory
         sweep_ops.inv_spd_sweep(torch.zeros(1, 300, 300, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d, dist, cpos, frame, pair = kernel_bench.constraint_states(model, 4,
+                                                                gen)
+    with pytest.raises(ValueError, match="qvel"):
+        con_ops.constraints(model, d.replace(qvel=d.qvel.double()), dist,
+                            cpos, frame, pair)
+    with pytest.raises(ValueError, match="con_frame"):
+        con_ops.constraints(model, d, dist, cpos, frame[:, :-1], pair)
+    with pytest.raises(ValueError, match="con_dist"):
+        con_ops.constraints(model, d, dist.cpu(), cpos, frame, pair)
 
 
 # ---- the humanoid and ant families (committed third-party scenes) ----
@@ -542,6 +644,7 @@ def test_control_step_graph_is_the_eager_step(model):
         runs.append((graphs.clone(state), roll, dict(launch_counts)))
     _assert_nests_equal(runs[1][:2], runs[0][:2])
     assert runs[1][2] == runs[0][2] and runs[0][2]["position"] == 20
+    assert runs[0][2]["constraints"] == 20
 
 
 @pytest.mark.cuda

@@ -297,7 +297,8 @@ CSRC = os.path.join(os.path.dirname(compat.__file__), "csrc")
 
 @pytest.mark.parametrize("source,group", [
     ("position.cu", "kernel A (position)"), ("cg.cu", "kernel B (cg)"),
-    ("sweep.cu", "kernel C (sweep)")])
+    ("sweep.cu", "kernel C (sweep)"),
+    ("constraints.cu", "kernel D (constraints)")])
 def test_kernel_groups_name_every_route_of_their_source(source, group):
     with open(os.path.join(CSRC, source)) as f:
         names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)"

@@ -2,8 +2,9 @@
 
 The JAX package ``vnl_tpu`` stays the reference; this package imports
 nothing of it.  Ported so far: the batched physics with its position
-stage (kernel A, or unfused on kernel C, the SPD sweep inverse) and the CG
-contact solve (kernel B) as hand-written Hopper kernels (``csrc/``), the
+stage (kernel A, or unfused on kernel C, the SPD sweep inverse), the
+constraint assembly (kernel D) and the CG contact solve (kernel B) as
+hand-written Hopper kernels (``csrc/``), the
 ``RodentTracking`` and ``RodentMultiClipTracking`` envs and the training
 wrappers, the intention policy and value network, the intention-PPO
 learner (``training.train``) with its evaluator, full-state checkpoints

@@ -14,7 +14,7 @@ iteration's Hessians, else the stacked pair), beside one launch of a
 one-element torch add, the floor of a launch in this timer, and reads
 each kernel's registers, local-memory bytes, shared memory and resident
 blocks per SM.  ``check_cg`` is the yardstick that holds kernel B against
-its plain version.  ``python3 -m vnl_tpu_torch.profile_rollout`` prints
+its plain version; ``constraint_states`` makes kernel D's inputs.  ``python3 -m vnl_tpu_torch.profile_rollout`` prints
 it as one JSON line; ``chip_smoke.py`` takes its inputs and its timer
 from here.
 """
@@ -72,13 +72,21 @@ def random_states(m, batch, gen):
 def _solve_inputs(m, batch, gen, press):
     """Kernel-A states with the root lowered by ``press``, through
     collision, constraints and the smooth dynamics: (data, constraint
-    system, qacc_smooth, number of active contacts)."""
-    from vnl_tpu_torch.physics import actuation, forward, inertia
+    system, qacc_smooth, number of active contacts).  The system is
+    make_constraints' on every device: kernel B's yardstick holds it to
+    its plain version on the plain assembly's systems, which kernel D
+    (tested on its own) gives to within a rounding that moves with the
+    batch (cuBLAS picks the order of the plain J qvel sums by shape)."""
+    from vnl_tpu_torch.physics import (actuation, collision, constraint,
+                                       forward, inertia)
     qpos = random_states(m, batch, gen)
     qpos[:, 2] -= press
     qvel = 0.5 * torch.randn(batch, m.nv, generator=gen, device=m.device)
     d = forward.make_data(m, batch, qpos=qpos, qvel=qvel)
-    d, efc = forward.fwd_position(m, d)
+    d, _ = forward.fwd_position(m, d)
+    efc = constraint.make_constraints(m, d, d.contact_dist, d.contact_pos,
+                                      d.contact_frame,
+                                      collision.pair_expansion(m))
     d = forward.fwd_velocity(m, d)
     _, qfrc_act, _ = actuation.actuation(m, d)
     qacc_smooth = inertia.solve_m(d, d.qfrc_passive - d.qfrc_bias + qfrc_act)
@@ -93,6 +101,47 @@ def contact_states(m, batch, gen, press: float = 0.005):
     d, efc, qacc_smooth, active = _solve_inputs(m, batch, gen, press)
     return solver.cg_inputs(m, d, efc, qacc_smooth,
                             max(m.opt.iterations, 1)), active
+
+
+# contact distances of ``constraint_states(edges=True)``, in widths of the
+# contact's solimp from margin - gap: past it on both sides of the
+# sigmoid's midpoint and beyond its width, just inside, at it (inactive)
+# and outside
+EDGE_STEPS = (-3.0, -1.0, -0.75, -0.5, -0.25, -1e-3, 0.0, 1e-3, 0.5, 3.0)
+
+
+def constraint_states(m, batch, gen, press: float = 0.005,
+                      edges: bool = False):
+    """Kernel D's inputs at kernel-A states with the root lowered by
+    ``press``, through the position stage and collision: (data, con_dist,
+    con_pos, con_frame, con_pair).  ``edges``: the hinges drawn up to 10%
+    of their ranges past either end (limit rows on both sides and
+    violated), and contact c of env b at the distance EDGE_STEPS[(b + c) %
+    10] widths from its margin - gap."""
+    from vnl_tpu_torch.ops import constraints
+    from vnl_tpu_torch.physics import collision, forward
+    dev = m.device
+    qpos = random_states(m, batch, gen)
+    if edges:
+        lo, hi = m.jnt_range[1:, 0], m.jnt_range[1:, 1]
+        u = 1.2 * torch.rand(batch, m.nq - 7, generator=gen, device=dev) - 0.1
+        qpos[:, 7:] = lo + u * (hi - lo)
+    qpos[:, 2] -= press
+    qvel = 0.5 * torch.randn(batch, m.nv, generator=gen, device=dev)
+    d, _ = forward.fwd_position(m, forward.make_data(m, batch, qpos=qpos,
+                                                     qvel=qvel))
+    pair = collision.pair_expansion(m)
+    dist = d.contact_dist
+    if edges:
+        t = constraints.kernel_tables(m, pair)["con_flt"]
+        field = constraints.CONTACT_FIELDS.index
+        thresh, width = (torch.as_tensor(t[field(n)], device=dev)
+                         for n in ("thresh", "width"))
+        steps = torch.tensor(EDGE_STEPS, device=dev)
+        k = (torch.arange(batch, device=dev)[:, None]
+             + torch.arange(len(pair), device=dev)) % len(EDGE_STEPS)
+        dist = thresh + width * steps[k]
+    return d, dist.contiguous(), d.contact_pos, d.contact_frame, pair
 
 
 def padded_contacts(args, st, pad: int):

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (ops/position.py: kernel A, the fused position stage; ops/cg.py:
 kernel B, the CG contact solve; ops/sweep.py: kernel C, the SPD sweep
-inverse of the unfused position stage).
+inverse of the unfused position stage; ops/constraints.py: kernel D, the
+limit and contact constraint system of a substep as kernel B takes it).
 
 ``launch_counts`` counts kernel launches by name; a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main

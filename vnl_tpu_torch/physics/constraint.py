@@ -51,6 +51,9 @@ class EfcSystem:
     ncon: int
     con_Jc: Optional[torch.Tensor] = None  # (B, ncon, 3, nv) dense, or None
     cone: int = int(ConeType.PYRAMIDAL)
+    # (B, 36, ncon) kernel B's [G2 | G1] where kernel D built the system
+    # (ops/constraints.py; con_G1 and con_G2 are views of it), else None
+    g36: Optional[torch.Tensor] = None
 
     @property
     def elliptic(self) -> bool:
@@ -128,6 +131,13 @@ def limit_onehot(lim_dof: np.ndarray, nv: int) -> np.ndarray:
     return out
 
 
+def limit_ids(m: Model) -> np.ndarray:
+    """The limited joints that get a limit row."""
+    if m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.LIMIT):
+        return np.zeros(0, np.int64)
+    return np.nonzero(np.asarray(m.jnt_limited))[0]
+
+
 def _impedance(solimp, r):
     """MuJoCo solimp sigmoid: impedance as a function of violation |r|."""
     d0, dmax, width, mid, power = solimp.unbind(-1)
@@ -166,9 +176,7 @@ def make_constraints(m: Model, d: Data, con_dist, con_pos, con_frame,
     flags = m.opt.disableflags
     disable_cstr = bool(flags & DisableBit.CONSTRAINT)
 
-    lim_ids = np.nonzero(np.asarray(m.jnt_limited))[0]
-    if disable_cstr or flags & DisableBit.LIMIT:
-        lim_ids = lim_ids[:0]
+    lim_ids = limit_ids(m)
     nlimit = len(lim_ids)
     if nlimit:
         lim_dof = np.asarray(m.jnt_dofadr[lim_ids])

@@ -22,11 +22,11 @@ import numpy as np
 import torch
 
 from vnl_tpu_torch import math as vmath
+from vnl_tpu_torch.ops import constraints as constraint_ops
 from vnl_tpu_torch.ops import position as position_ops
 from vnl_tpu_torch.ops.linalg import refine_inv_general
 from vnl_tpu_torch.physics import actuation as _actuation
 from vnl_tpu_torch.physics import collision as _collision
-from vnl_tpu_torch.physics import constraint as _constraint
 from vnl_tpu_torch.physics import inertia as _inertia
 from vnl_tpu_torch.physics import kinematics as _kinematics
 from vnl_tpu_torch.physics import rne as _rne
@@ -90,8 +90,7 @@ def fwd_position(m: Model, d: Data, refine_inverse: bool = False,
     con_dist, con_pos, con_frame, con_pair = _collision.collide(m, d)
     d = d.replace(contact_dist=con_dist, contact_pos=con_pos,
                   contact_frame=con_frame)
-    efc = _constraint.make_constraints(m, d, con_dist, con_pos, con_frame,
-                                       con_pair)
+    efc = constraint_ops.system(m, d, con_dist, con_pos, con_frame, con_pair)
     return d, efc
 
 

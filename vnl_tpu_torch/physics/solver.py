@@ -249,23 +249,36 @@ def _newton_loop(m: Model, d: Data, efc: EfcSystem, qacc_smooth,
     return x, lim_jx, con_fx
 
 
+def kernel_b_system(m: Model, efc: EfcSystem) -> EfcSystem:
+    """The system as kernel B takes it: a contact-only model gets one inert
+    limit row (sign 0, D 0), which keeps the kernel's shapes non-empty
+    (solver.py:253-263 in the JAX package)."""
+    if efc.nlimit:
+        return efc
+    z = efc.con_cdof.new_zeros(efc.con_cdof.shape[0], 1)
+    return efc.replace(lim_dof=np.zeros(1, np.int32),
+                       lim_onehot=efc.con_cdof.new_zeros(1, m.nv),
+                       lim_sign=z, lim_aref=z, lim_D=z, lim_pos=z, nlimit=1)
+
+
+def g36(efc: EfcSystem) -> torch.Tensor:
+    """Kernel B's (B, 36, ncon) moment arms [G2 | G1 rows, f-major]: kernel
+    D's own where it built the system, else packed from G1 and G2."""
+    if efc.g36 is not None:
+        return efc.g36
+    return torch.cat([
+        efc.con_G2.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon),
+        efc.con_G1.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon)],
+        1).contiguous()
+
+
 def cg_inputs(m: Model, d: Data, efc: EfcSystem, qacc_smooth, n_iter: int):
     """The flat arguments and static structure of the CG solve (the
     signature of ops/cg.py, kernel B)."""
     from vnl_tpu_torch.ops import cg as cg_ops
-    if efc.nlimit == 0:
-        # contact-only models: one inert limit row (sign 0, D 0) keeps the
-        # kernel's shapes non-empty (solver.py:253-263 in the JAX package)
-        z = qacc_smooth.new_zeros(qacc_smooth.shape[0], 1)
-        efc = efc.replace(lim_dof=np.zeros(1, np.int32),
-                          lim_onehot=qacc_smooth.new_zeros(1, m.nv),
-                          lim_sign=z, lim_aref=z, lim_D=z, lim_pos=z,
-                          nlimit=1)
-    g36 = torch.cat([
-        efc.con_G2.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon),
-        efc.con_G1.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon)], 1)
+    efc = kernel_b_system(m, efc)
     args = (d.qM, d.qMinv, qacc_smooth.contiguous(), efc.con_cdof,
-            g36.contiguous(), efc.lim_sign, efc.lim_aref, efc.lim_D,
+            g36(efc), efc.lim_sign, efc.lim_aref, efc.lim_D,
             efc.con_mu.contiguous(), efc.con_aref, efc.con_D)
     statics = cg_ops.CgStatics.make(m.nv, efc.lim_dof, efc.con_chain1,
                                     efc.con_chain2, n_iter,

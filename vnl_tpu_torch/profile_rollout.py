@@ -44,12 +44,14 @@ KERNEL_GROUPS = tuple(
     (group, re.compile(rf"(?<![a-z_]){names}_kernel(?![a-z_])"))
     for group, names in (("kernel A (position)", "position(_warp)?"),
                          ("kernel B (cg)", "cg(_wide)?"),
-                         ("kernel C (sweep)", "sweep(_tile|_warp)?")))
+                         ("kernel C (sweep)", "sweep(_tile|_warp)?"),
+                         ("kernel D (constraints)", "constraints")))
 
 
 def device_groups(prof):
     """Device time (us) and launches of a torch.profiler trace by kernel
-    group: the hand-written kernels A, B and C, copies, and the rest."""
+    group: the hand-written kernels A, B, C and D, copies, and the
+    rest."""
     groups = collections.Counter()
     launches = collections.Counter()
     for ev in prof.events():
