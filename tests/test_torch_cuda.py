@@ -648,6 +648,45 @@ def test_control_step_graph_is_the_eager_step(model):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("body", ["twin", "humanoid"])
+def test_control_step_graph_parts_add_up_to_its_nodes(model, body):
+    """The control-step graph's capture report: the nodes of the eight
+    tagged parts (utils/profiler.py ``part``) add up to the graph's node
+    count, every part adds some, and a replay counts each part's nodes
+    under ``graph_nodes.<part>`` in an open recording."""
+    from vnl_tpu_torch import models
+    from vnl_tpu_torch.envs import (HumanoidTracking, make_twin_env,
+                                    wrap_for_training)
+    from vnl_tpu_torch.training import ActorStepGraph
+    from vnl_tpu_torch.utils import profiler
+    raw = make_twin_env(device="cuda") if body == "twin" else \
+        HumanoidTracking(device="cuda")
+    env = wrap_for_training(raw, episode_length=3)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    state = env.reset(B, generator=gen)
+    net = models.make_intention_ppo_networks(
+        state.info["traj"].shape[-1], state.obs.shape[-1], env.action_size,
+        intention_latent_size=8, encoder_layer_sizes=(64,),
+        decoder_layer_sizes=(64,), value_hidden_layer_sizes=(64,),
+        generator=torch.Generator().manual_seed(9), device="cuda")
+    policy = models.make_inference_fn(net)(deterministic=False)
+    step = ActorStepGraph(env, policy, gen, ("truncation", "traj"))
+    state, _ = step(state)
+    parts = step.report["parts"]
+    assert set(parts) == {"position", "collision", "constraints",
+                          "velocity", "solve", "integrate", "env", "policy"}
+    assert all(n > 0 for n in parts.values()), parts
+    assert sum(parts.values()) == step.report["nodes"], parts
+    with profiler.recording("cuda") as rec:
+        with profiler.timed("train.step", step=0):
+            step(state)
+    counters = rec.summary([0])["counters"]
+    assert counters["graph_nodes"] == [step.report["nodes"]]
+    for p, n in parts.items():
+        assert counters[f"graph_nodes.{p}"] == [n], p
+
+
+@pytest.mark.cuda
 def test_sgd_update_graph_is_the_eager_update(model):
     """Three PPO updates on minibatches of a twin rollout, replayed as the
     SGD-update graph against the eager updates, from the same weights and

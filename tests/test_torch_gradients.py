@@ -2,7 +2,8 @@
 (torch.optim.Adam at optax.adam's defaults) on fixed gradients for three
 updates against optax.adam, parameters at 1e-6; and gradient_update_fn on
 a small quadratic loss against vnl_tpu.training.gradients.gradient_update_fn
-for three updates, loss and parameters at 1e-6."""
+for three updates, loss and parameters at 1e-6; and the flush of subnormal
+moments, against the same rule without it."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +99,64 @@ def test_gradient_update_fn_without_aux():
     for _ in range(20):
         last = float(update().detach())
     assert last < first
+
+
+def _adam_without_flush(params, grads, mu, nu, count, lr):
+    """make_adam's update as it is written, less the flush of subnormal
+    moments."""
+    b1, b2 = 0.9, 0.999
+    count.add_(1.0)
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    mu_hat = torch._foreach_div(mu, 1.0 - torch.pow(b1, count))
+    denom = torch._foreach_sqrt(
+        torch._foreach_div(nu, 1.0 - torch.pow(b2, count)))
+    torch._foreach_add_(denom, 1e-8)
+    torch._foreach_add_(params, torch._foreach_div(mu_hat, denom),
+                        alpha=-lr)
+
+
+def test_adam_flushes_subnormal_moments_and_moves_no_parameter():
+    """Entries whose gradient falls to exactly 0 (dead units) after 1-400
+    updates, at scales 1e-6 to 1, and entries whose nu starts at the
+    bottom of the normal range: over 1,200 updates, flushed every 64, the
+    rule without the flush leaves mu and nu subnormal there, make_adam 0;
+    the parameters stay bit for bit the same, and every moment that the
+    rule leaves normal or 0 is the same."""
+    tiny = torch.finfo(torch.float32).tiny
+    gen = torch.Generator().manual_seed(5)
+    shapes = [(64, 32), (32,)]
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen))
+              for s in shapes]
+    scale = [10.0 ** (-6 * torch.rand(s, generator=gen)) for s in shapes]
+    dies = [torch.randint(1, 400, s, generator=gen) for s in shapes]
+    ref = [p.detach().clone() for p in params]
+    opt = tgradients.make_adam(params, LR)
+    low = [torch.rand(s, generator=gen) < 0.1 for s in shapes]
+    for n, m in zip(opt.exp_avg_sq, low):
+        n[m] = tiny * 1.5
+    mu = [m.clone() for m in opt.exp_avg]
+    nu = [n.clone() for n in opt.exp_avg_sq]
+    count = torch.zeros(())
+    for t in range(1, 1201):
+        grads = [torch.randn(s, generator=gen) * c * (d > t) * ~m
+                 for s, c, d, m in zip(shapes, scale, dies, low)]
+        for p, g in zip(params, grads):
+            p.grad = g.clone()
+        opt.step()
+        if t % 64 == 0 or t == 1200:
+            opt.flush()
+        _adam_without_flush(ref, grads, mu, nu, count, LR)
+    for p, r in zip(params, ref):
+        assert p.detach().numpy().tobytes() == r.numpy().tobytes()
+    for got, want in ((opt.exp_avg, mu), (opt.exp_avg_sq, nu)):
+        assert sum(int(((w != 0) & (w.abs() < tiny)).sum())
+                   for w in want) > 100
+        for g, w in zip(got, want):
+            normal = (w == 0) | (w.abs() >= tiny)
+            assert torch.equal(g[normal], w[normal])
+            assert not bool(((g != 0) & (g.abs() < tiny)).any())
+            assert bool((g[~normal] == 0).all())
+

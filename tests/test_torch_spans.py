@@ -25,7 +25,7 @@ TINY = dict(episode_length=6, num_envs=4, num_eval_envs=2, unroll_length=4,
 STEP = 2 * 4 * 2                 # env steps a training step
 
 DEVICE_SPANS = {"rollout.control_step", "rollout.concat", "train.normalizer",
-                "sgd.shuffle", "sgd.update", "train.stats"}
+                "sgd.shuffle", "sgd.update", "sgd.flush", "train.stats"}
 TIMED = {"train.step", "train.rollout", "train.sgd", "eval"}
 
 # operations that touch no element: views and aliases, allocation, detach

@@ -34,6 +34,12 @@ restore_checkpoint`` option of ``python -m vnl_tpu_torch.train`` read.
 writes the goldens of ``python -m vnl_tpu_torch.check_numerics`` under
 vnl_tpu_torch/assets/goldens/: rollouts and forward passes of vnl_tpu on
 the CPU (see ``export_goldens``).
+
+  python tools/export_torch_assets.py --benchmark-humanoid
+
+writes benchmark/reference/assets/humanoid_model.npz: the vnl_tpu compile
+of the committed dm_control suite humanoid with the humanoid envs' solver
+options (HUMANOID_COMPILE), which the benchmark's plain reference runs.
 """
 
 from __future__ import annotations
@@ -58,6 +64,13 @@ TWIN_COMPILE = dict(rescale=(0.9, 0.9), torque_actuators=True,
                     overrides={"solver": "cg", "iterations": 6,
                                "ls_iterations": 6, "cone": "pyramidal"})
 SEED = 1234
+
+# the suite humanoid as vnl_tpu_torch/envs/humanoid.py compiles it
+HUMANOID_XML = os.path.join(ASSETS, "dm_humanoid", "humanoid.xml")
+HUMANOID_COMPILE = dict(overrides={"solver": "cg", "iterations": 6,
+                                   "ls_iterations": 6})
+BENCHMARK_HUMANOID = os.path.join(ROOT, "benchmark", "reference", "assets",
+                                  "humanoid_model.npz")
 
 # joints that carry a motor: the 33 tracked joints of configs/env_config.yaml
 # minus three head/finger joints, so nu = 30 like the keeper's action head
@@ -786,6 +799,12 @@ def main(argv=None):
     if argv[:1] == ["--goldens"]:
         return export_goldens()
     from vnl_tpu import mjcf
+    if argv[:1] == ["--benchmark-humanoid"]:
+        np.savez(BENCHMARK_HUMANOID, **model_to_numpy(
+            mjcf.load_model(HUMANOID_XML, **HUMANOID_COMPILE)))
+        print(f"{BENCHMARK_HUMANOID}: "
+              f"{os.path.getsize(BENCHMARK_HUMANOID)} bytes")
+        return 0
     from vnl_tpu.data.pipeline import process_recording
 
     os.makedirs(ASSETS, exist_ok=True)

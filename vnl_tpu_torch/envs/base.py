@@ -12,7 +12,7 @@ import torch
 
 from vnl_tpu_torch.physics.forward import forward, make_data, step
 from vnl_tpu_torch.physics.model import Data, Model
-from vnl_tpu_torch.utils import graphs
+from vnl_tpu_torch.utils import graphs, profiler
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -34,12 +34,13 @@ def step_in_place(step: Callable, state: State):
     whose tensors never share storage with ``state``: the body of a
     ``StateGraph``."""
     next_state, out = step(state)
-    held = {t.untyped_storage().data_ptr()
-            for t in graphs.leaves(state) if t.numel()}
-    out = graphs.map_leaves(
-        lambda t: t.clone() if t.numel() and
-        t.untyped_storage().data_ptr() in held else t, out)
-    graphs.copy_(state, next_state)
+    with profiler.part("env"):
+        held = {t.untyped_storage().data_ptr()
+                for t in graphs.leaves(state) if t.numel()}
+        out = graphs.map_leaves(
+            lambda t: t.clone() if t.numel() and
+            t.untyped_storage().data_ptr() in held else t, out)
+        graphs.copy_(state, next_state)
     return out
 
 

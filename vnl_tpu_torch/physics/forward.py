@@ -32,6 +32,7 @@ from vnl_tpu_torch.physics import kinematics as _kinematics
 from vnl_tpu_torch.physics import rne as _rne
 from vnl_tpu_torch.physics import solver as _solver
 from vnl_tpu_torch.physics.model import Data, IntegratorType, JointType, Model
+from vnl_tpu_torch.utils.profiler import part
 
 
 def pin_fp32() -> None:
@@ -76,21 +77,26 @@ def fwd_position(m: Model, d: Data, refine_inverse: bool = False,
     """Position stage, collision and constraints.  ``fused_position``
     chooses kernel A (always exact) over the unfused stage, which alone
     reads ``refine_inverse`` (see inertia.crb)."""
-    if fused_position:
-        (xpos, xquat, xmat, xipos, xanchor, xaxis, gxp, gxm, scom, cinert,
-         cdof, qM, *invs) = position_ops.position(m, d.qpos.contiguous())
-        d = d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
-                      xanchor=xanchor, xaxis=xaxis, geom_xpos=gxp,
-                      geom_xmat=gxm, subtree_com=scom, cinert=cinert,
-                      cdof=cdof, qM=qM, qMinv=invs[0], qMhBinv=invs[-1])
-    else:
-        d = _kinematics.kinematics(m, d)
-        d = _kinematics.com_pos(m, d)
-        d = _inertia.crb(m, d, refine_inverse=refine_inverse)
-    con_dist, con_pos, con_frame, con_pair = _collision.collide(m, d)
+    with part("position"):
+        if fused_position:
+            (xpos, xquat, xmat, xipos, xanchor, xaxis, gxp, gxm, scom,
+             cinert, cdof, qM, *invs) = position_ops.position(
+                 m, d.qpos.contiguous())
+            d = d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
+                          xanchor=xanchor, xaxis=xaxis, geom_xpos=gxp,
+                          geom_xmat=gxm, subtree_com=scom, cinert=cinert,
+                          cdof=cdof, qM=qM, qMinv=invs[0], qMhBinv=invs[-1])
+        else:
+            d = _kinematics.kinematics(m, d)
+            d = _kinematics.com_pos(m, d)
+            d = _inertia.crb(m, d, refine_inverse=refine_inverse)
+    with part("collision"):
+        con_dist, con_pos, con_frame, con_pair = _collision.collide(m, d)
     d = d.replace(contact_dist=con_dist, contact_pos=con_pos,
                   contact_frame=con_frame)
-    efc = constraint_ops.system(m, d, con_dist, con_pos, con_frame, con_pair)
+    with part("constraints"):
+        efc = constraint_ops.system(m, d, con_dist, con_pos, con_frame,
+                                    con_pair)
     return d, efc
 
 
@@ -109,17 +115,20 @@ def forward(m: Model, d: Data, refine_inverse: bool = False,
     the JAX package: the envs read the state directly)."""
     pin_fp32()
     d, efc = fwd_position(m, d, refine_inverse, fused_position)
-    d = fwd_velocity(m, d)
-    force, qfrc_act, act_dot = _actuation.actuation(m, d)
-    d = d.replace(actuator_force=force, qfrc_actuator=qfrc_act,
-                  act_dot=act_dot)
-    qfrc_smooth = d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
-    qacc_smooth = _inertia.solve_m(d, qfrc_smooth)
-    qacc, qfrc_constraint, con_force = _solver.solve(m, d, efc, qacc_smooth)
-    if not efc.ncon:
-        con_force = qacc.new_zeros(qacc.shape[0], m.ncon_max, 4)
-    elif con_force.shape[-1] == 3:             # elliptic rows -> pad
-        con_force = torch.nn.functional.pad(con_force, (0, 1))
+    with part("velocity"):                  # and actuation, M^-1 qfrc
+        d = fwd_velocity(m, d)
+        force, qfrc_act, act_dot = _actuation.actuation(m, d)
+        d = d.replace(actuator_force=force, qfrc_actuator=qfrc_act,
+                      act_dot=act_dot)
+        qfrc_smooth = d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
+        qacc_smooth = _inertia.solve_m(d, qfrc_smooth)
+    with part("solve"):
+        qacc, qfrc_constraint, con_force = _solver.solve(m, d, efc,
+                                                         qacc_smooth)
+        if not efc.ncon:
+            con_force = qacc.new_zeros(qacc.shape[0], m.ncon_max, 4)
+        elif con_force.shape[-1] == 3:             # elliptic rows -> pad
+            con_force = torch.nn.functional.pad(con_force, (0, 1))
     d = d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth,
                   qacc=qacc, qfrc_constraint=qfrc_constraint,
                   contact_force=con_force)
@@ -229,8 +238,9 @@ def step(m: Model, d: Data, refine_inverse: bool = False,
     """One physics step: forward dynamics + the model's integrator (Euler
     and implicitfast through ``integrate``, RK4, full implicit)."""
     d = forward(m, d, refine_inverse, fused_position)
-    if m.opt.integrator == int(IntegratorType.IMPLICIT):
-        return _implicit_integrate(m, d)
-    if m.opt.integrator == int(IntegratorType.RK4):
-        return _rk4(m, d, fused_position)
-    return integrate(m, d)
+    with part("integrate"):       # RK4's forward passes tag their own parts
+        if m.opt.integrator == int(IntegratorType.IMPLICIT):
+            return _implicit_integrate(m, d)
+        if m.opt.integrator == int(IntegratorType.RK4):
+            return _rk4(m, d, fused_position)
+        return integrate(m, d)

@@ -19,8 +19,10 @@ blocks), after the compiler's own resource report.
 Usage (from the repo root, on the machine with the card):
   python3 -m vnl_tpu_torch.profile_rollout [--stages-only]
   python3 -m vnl_tpu_torch.profile_rollout --scene humanoid|ant
+  python3 -m vnl_tpu_torch.profile_rollout --parts --scene twin|humanoid
 (--scene: the stage split of the kernels that scene runs, at its shapes,
-and stop)
+and stop; --parts: the eager control step's device time by tagged part,
+{"part_profile": ...}, and stop)
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import json
 import re
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -48,20 +51,31 @@ KERNEL_GROUPS = tuple(
                          ("kernel D (constraints)", "constraints")))
 
 
+def _group(name: str) -> Optional[str]:
+    """The hand-written kernel group of a kernel name, if any."""
+    return next((k for k, pattern in KERNEL_GROUPS if pattern.search(name)),
+                None)
+
+
+def _device_events(prof):
+    """The device's work in a trace: its events less the device side of
+    ``record_function`` ranges."""
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+
+
 def device_groups(prof):
     """Device time (us) and launches of a torch.profiler trace by kernel
     group: the hand-written kernels A, B, C and D, copies, and the
     rest."""
     groups = collections.Counter()
     launches = collections.Counter()
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in _device_events(prof):
         name = ev.name
-        key = next((k for k, pattern in KERNEL_GROUPS
-                    if pattern.search(name)),
-                   "memcpy/memset" if "memcpy" in name.lower()
-                   or "memset" in name.lower() else "other torch kernels")
+        key = _group(name) or (
+            "memcpy/memset" if "memcpy" in name.lower()
+            or "memset" in name.lower() else "other torch kernels")
         groups[key] += ev.time_range.end - ev.time_range.start   # us
         launches[key] += 1
     return groups, launches
@@ -138,6 +152,80 @@ def profile_rollout(cuda_graphs: bool, batch: int = BATCH,
     return out
 
 
+# the part of the control step that launches each hand-written kernel on
+# the fused paths: their launches go through ctypes and leave no
+# operation in the trace to find a range around
+KERNEL_PARTS = {"kernel A (position)": "position", "kernel B (cg)": "solve",
+                "kernel D (constraints)": "constraints"}
+
+
+def device_by_part(prof):
+    """Device time (us) and kernels of a torch.profiler trace by tagged
+    part of the control step (utils/profiler.py ``part``): each
+    operation's kernels go to the innermost ``part.<name>`` range around
+    it, "(untagged)" where there is none, and the hand-written kernels to
+    their parts by name (``KERNEL_PARTS``)."""
+    times, kernels = collections.Counter(), collections.Counter()
+    for ev in _device_events(prof):
+        key = KERNEL_PARTS.get(_group(ev.name))
+        if key:
+            times[key] += ev.time_range.end - ev.time_range.start
+            kernels[key] += 1
+    for ev in prof.events():
+        found = [k for k in ev.kernels if _group(k.name) not in KERNEL_PARTS]
+        if not found:
+            continue
+        tag = ev
+        while tag is not None and not tag.name.startswith("part."):
+            tag = tag.cpu_parent
+        key = tag.name[5:] if tag else "(untagged)"
+        times[key] += sum(k.duration for k in found)
+        kernels[key] += len(found)
+    return times, kernels
+
+
+def profile_parts(scene: str, batch: int = 128, steps: int = STEPS) -> dict:
+    """The eager control step of ``scene`` (twin or humanoid, wrapped for
+    training, a fresh intention network at upstream's widths, sampling) at
+    ``batch`` envs: two warm-up steps, ``steps`` traced; device time and
+    kernels a control step by tagged part, beside the trace's whole
+    device time.  A graph replays the same kernels with shorter gaps."""
+    from vnl_tpu_torch import models
+    from vnl_tpu_torch.envs import (HumanoidTracking, make_twin_env,
+                                    wrap_for_training)
+    from vnl_tpu_torch.training import generate_unroll
+
+    raw = (make_twin_env(device="cuda") if scene == "twin"
+           else HumanoidTracking(device="cuda"))
+    env = wrap_for_training(raw, episode_length=150)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = env.reset(batch, generator=gen)
+    net = models.make_intention_ppo_networks(
+        state.info["traj"].shape[-1], state.obs.shape[-1], env.action_size,
+        encoder_layer_sizes=(256, 128), decoder_layer_sizes=(128, 256),
+        generator=torch.Generator().manual_seed(1),
+        device="cuda")
+    policy = models.make_inference_fn(net)(deterministic=False)
+    extra = ("truncation", "traj")
+    state, _ = generate_unroll(env, state, policy, gen, 2, extra)
+    torch.cuda.synchronize()
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = generate_unroll(env, state, policy, gen, steps, extra)
+        torch.cuda.synchronize()
+    by_part, launches = device_by_part(prof)
+    groups, _ = device_groups(prof)
+    return dict(scene=scene, batch=batch, steps=steps,
+                device_ms_per_step={k: v / 1e3 / steps
+                                    for k, v in by_part.most_common()},
+                kernels_per_step={k: v / steps
+                                  for k, v in launches.most_common()},
+                tagged_ms_per_step=sum(by_part.values()) / 1e3 / steps,
+                trace_device_ms_per_step=sum(groups.values()) / 1e3 / steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -150,7 +238,13 @@ def main() -> int:
                    choices=("twin", "humanoid", "ant"),
                    help="humanoid, ant: only the stage split of the kernels "
                         "that scene runs (A and B; A)")
+    p.add_argument("--parts", action="store_true",
+                   help="print the eager control step's device time by "
+                        "tagged part for --scene (twin or humanoid) at "
+                        "the benchmark cells' 128 envs, and stop")
     args = p.parse_args()
+    if args.parts and args.scene == "ant":
+        p.error("--parts profiles the twin or the humanoid")
 
     from vnl_tpu_torch import compat, kernel_bench
     from vnl_tpu_torch.bench import gpu_name_and_power_limit
@@ -158,6 +252,12 @@ def main() -> int:
     from vnl_tpu_torch.physics import forward
 
     build.build_all()
+    if args.parts:
+        forward.pin_fp32()
+        print(json.dumps({"part_profile": dict(
+            profile_parts(args.scene),
+            card=gpu_name_and_power_limit())}))
+        return 0
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:

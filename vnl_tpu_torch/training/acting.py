@@ -25,15 +25,18 @@ def actor_step(env, env_state: State, policy,
                generator: Optional[torch.Generator] = None,
                extra_fields: Sequence[str] = ()) -> Tuple[State, Transition]:
     """One policy query + one env step."""
-    action, policy_extras = policy(env_state.info["traj"], env_state.obs,
-                                   generator)
-    next_state = env.step(env_state, action)
-    return next_state, Transition(
-        observation=env_state.obs, action=action, reward=next_state.reward,
-        discount=1.0 - next_state.done, next_observation=next_state.obs,
-        extras={"policy_extras": policy_extras,
-                "state_extras": {k: next_state.info[k]
-                                 for k in extra_fields}})
+    with profiler.part("policy"):
+        action, policy_extras = policy(env_state.info["traj"], env_state.obs,
+                                       generator)
+    with profiler.part("env"):
+        next_state = env.step(env_state, action)
+        return next_state, Transition(
+            observation=env_state.obs, action=action,
+            reward=next_state.reward, discount=1.0 - next_state.done,
+            next_observation=next_state.obs,
+            extras={"policy_extras": policy_extras,
+                    "state_extras": {k: next_state.info[k]
+                                     for k in extra_fields}})
 
 
 class ActorStepGraph(StateGraph):

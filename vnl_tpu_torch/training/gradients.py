@@ -17,6 +17,12 @@ import torch
 from vnl_tpu_torch.utils import graphs
 
 
+# the largest subnormal float32: Adam flushes moments of this size or less
+SUBNORMAL_MAX = 1.1754942106924411e-38
+# the elements between the starts of two moments in Adam's buffer
+ALIGN = 128
+
+
 class Adam:
     """optax.adam's rule: b1 0.9, b2 0.999, eps 1e-8 added outside the
     square root, bias-corrected moments, ``p - lr mu_hat / (sqrt(nu_hat) +
@@ -25,8 +31,16 @@ class Adam:
     b**count`` are taken in float32, as optax takes them, so one update
     runs the same on the CPU and in a CUDA graph.  A parameter without a
     gradient is left alone, as torch.optim.Adam leaves it.  The moments
-    ``exp_avg`` / ``exp_avg_sq`` (optax's mu / nu, one a parameter) and
-    ``count`` are written in place by every update."""
+    ``exp_avg`` / ``exp_avg_sq`` (optax's mu / nu, one a parameter, views
+    of one buffer) and ``count`` are written in place by every update.
+
+    ``flush`` sets the moments' subnormal entries to 0, as the TPU
+    flushes them; the trainer calls it once a training step.  Where a
+    gradient stays exactly 0 (a dead unit), mu decays by b1 an update into
+    the subnormals and stops there a few ulp above 0, and the card divides
+    a subnormal on a slow path, so the updates slow as such entries
+    gather.  No parameter moves for it: a subnormal moment's share of an
+    update is below 1e-33."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -38,8 +52,21 @@ class Adam:
             learning_rate, b1, b2, eps)
         self.count = torch.zeros((), dtype=torch.float32,
                                  device=self.params[0].device)
-        self.exp_avg = [torch.zeros_like(p) for p in self.params]
-        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        if len({(p.dtype, p.device) for p in self.params}) != 1:
+            raise ValueError(
+                "Adam's parameters must share one dtype and device")
+        # both moments in one buffer, which one launch flushes; each view
+        # starts 512 bytes in, as the caching allocator's blocks do, so
+        # that the foreach kernels take their vectorised path
+        at, starts = 0, []
+        for p in self.params * 2:
+            starts.append(at)
+            at += -(-p.numel() // ALIGN) * ALIGN
+        self._moments = self.params[0].new_zeros(at)
+        views = [self._moments[s:s + p.numel()].view(p.shape)
+                 for s, p in zip(starts, self.params * 2)]
+        self.exp_avg = views[:len(self.params)]
+        self.exp_avg_sq = views[len(self.params):]
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -66,6 +93,11 @@ class Adam:
         torch._foreach_add_(denom, self.eps)
         torch._foreach_add_(params, torch._foreach_div(mu_hat, denom),
                             alpha=-self.learning_rate)
+
+    @torch.no_grad()
+    def flush(self) -> None:
+        """Sets the moments' subnormal entries to 0, in one launch."""
+        torch.hardshrink(self._moments, SUBNORMAL_MAX, out=self._moments)
 
 
 def make_adam(params: Iterable[torch.nn.Parameter],

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import logging
 import time
@@ -140,6 +141,14 @@ def clip_weights_from_metrics(metrics: Dict, num_clips: int) -> np.ndarray:
     deficit = 1.0 - rew / (rew.max() + 1e-8)
     w = np.maximum(deficit, 0.0) + 0.25
     return w / w.sum()
+
+
+# the training step at whose start train() takes every object built so far
+# (the networks, the captured graphs, the state) out of the collector's
+# generations (gc.freeze) until it returns: the first steps capture the
+# graphs, and a full collection over them takes about 0.1 s, which stalls
+# the device wherever it falls
+FREEZE_AT_STEP = 2
 
 
 def sgd_pass(update_step: Callable, batch: Transition, num_minibatches: int,
@@ -291,7 +300,11 @@ def train(
 
     def one_training_step(ts: TrainingState, env_state):
         _sync(device)
-        with profiler.timed("train.step", step=next(step_ids)) as step:
+        step_id = next(step_ids)
+        if step_id == FREEZE_AT_STEP:
+            gc.collect()
+            gc.freeze()
+        with profiler.timed("train.step", step=step_id) as step:
             with profiler.timed("train.rollout") as rollout:
                 env_state, batch = collect_rollouts(
                     env, env_state, policy, gen, unroll_length,
@@ -308,6 +321,8 @@ def train(
                 for _ in range(num_updates_per_batch):
                     stats += sgd_pass(update_step, batch, num_minibatches,
                                       gen)
+                with profiler.span("sgd.flush", device=True):
+                    optimizer.flush()
             # every update's stats as one row, so that the interval reads
             # them back in a single transfer
             with profiler.span("train.stats", device=True):
@@ -379,33 +394,36 @@ def train(
         progress_fn(0, metrics)
 
     current_step, interval = training_state.env_steps, -1
-    while current_step < num_timesteps:
-        interval += 1
-        logging.info("starting interval %s t=%.1fs", interval,
-                     time.time() - start_walltime)
-        training_state, env_state, training_metrics = run_interval(
-            training_state, env_state)
-        training_state = snapshot(training_state.normalizer_params,
-                                  training_state.env_steps)
-        current_step = training_state.env_steps
-        if rank != 0:
-            continue
-        metrics = evaluator.run_evaluation(training_metrics)
-        if adaptive_clip_weights:
-            w = clip_weights_from_metrics(metrics, clip_lib.num_clips)
-            env_state = env.reset(num_envs_local, generator=gen,
-                                  clip_weights=torch.as_tensor(
-                                      w, dtype=torch.float32, device=device))
-            metrics.update({f"training/clip_weight_{c}": float(w[c])
-                            for c in range(len(w))})
-        logging.info(metrics)
-        progress_fn(current_step, metrics)
-        policy_params_fn(current_step, make_policy,
-                         params_of(training_state))
-        if checkpoint_dir is not None:
-            checkpoint.save_async(checkpoint_dir, current_step,
-                                  training_state)
-
+    try:
+        while current_step < num_timesteps:
+            interval += 1
+            logging.info("starting interval %s t=%.1fs", interval,
+                         time.time() - start_walltime)
+            training_state, env_state, training_metrics = run_interval(
+                training_state, env_state)
+            training_state = snapshot(training_state.normalizer_params,
+                                      training_state.env_steps)
+            current_step = training_state.env_steps
+            if rank != 0:
+                continue
+            metrics = evaluator.run_evaluation(training_metrics)
+            if adaptive_clip_weights:
+                w = clip_weights_from_metrics(metrics, clip_lib.num_clips)
+                env_state = env.reset(
+                    num_envs_local, generator=gen,
+                    clip_weights=torch.as_tensor(w, dtype=torch.float32,
+                                                 device=device))
+                metrics.update({f"training/clip_weight_{c}": float(w[c])
+                                for c in range(len(w))})
+            logging.info(metrics)
+            progress_fn(current_step, metrics)
+            policy_params_fn(current_step, make_policy,
+                             params_of(training_state))
+            if checkpoint_dir is not None:
+                checkpoint.save_async(checkpoint_dir, current_step,
+                                      training_state)
+    finally:
+        gc.unfreeze()
     checkpoint.wait_for_pending_saves()
     mesh_lib.assert_is_replicated(training_state)
     logging.info("total steps: %s", current_step)

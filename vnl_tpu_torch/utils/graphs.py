@@ -23,6 +23,14 @@ What a capture needs, and the helper sees to:
     Python, which counts, but launches nothing; the counts of the capture
     are taken back and added once for every replay.
 
+The control step tags its parts (``profiler.part``: the physics'
+``position``, ``collision``, ``constraints``, ``velocity``, ``solve`` and
+``integrate`` stages, the ``policy`` and the rest of the ``env``).  A
+capture reads the graph in progress as each tagged part begins and ends
+and keeps the nodes each added (the innermost part open gets them) in its
+report, ``parts``; a replay adds them to the ``graph_nodes.<part>``
+counters of an open ``profiler.recording``.
+
 On the CPU nothing is captured: a ``Graph`` of CPU tensors raises, and
 the callers run their eager code there.  A failed capture raises; nothing
 falls back to eager.
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -47,8 +56,8 @@ from vnl_tpu_torch.parallel.mesh import collective_counts
 from vnl_tpu_torch.utils import profiler
 
 # every capture's report, in order: name, capture and instantiate
-# seconds, the graph's node count, its pool's bytes and the launches a
-# replay counts
+# seconds, the graph's node count, the nodes of each tagged part, its
+# pool's bytes and the launches a replay counts
 REPORTS: List[dict] = []
 
 
@@ -163,14 +172,43 @@ def warm_up(fn: Callable, *args, **kwargs):
     return out
 
 
-def _node_count(graph: torch.cuda.CUDAGraph) -> int:
-    """The captured graph's node count (cuGraphGetNodes of libcuda)."""
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    p = ctypes.c_void_p
+    lib.cuGraphGetNodes.argtypes = [p, p, p]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    lib.cuStreamGetCaptureInfo_v2.argtypes = [p, p, p, p, p, p]
+    lib.cuStreamGetCaptureInfo_v2.restype = ctypes.c_int
+    return lib
+
+
+def _graph_nodes(graph: int) -> int:
+    """The node count of a CUgraph (cuGraphGetNodes of libcuda)."""
     n = ctypes.c_size_t(0)
-    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    err = _libcuda().cuGraphGetNodes(ctypes.c_void_p(graph), None,
+                                     ctypes.byref(n))
     if err:
         raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
     return n.value
+
+
+def _node_count(graph: torch.cuda.CUDAGraph) -> int:
+    """The captured graph's node count."""
+    return _graph_nodes(graph.raw_cuda_graph())
+
+
+def _capturing_nodes() -> int:
+    """The node count of the graph the current stream is capturing into
+    (cuStreamGetCaptureInfo_v2 of libcuda)."""
+    status, graph = ctypes.c_int(0), ctypes.c_void_p(None)
+    err = _libcuda().cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        ctypes.byref(status), None, ctypes.byref(graph), None, None)
+    if err or not graph.value:
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2 gave CUresult {err}, "
+                           f"capture status {status.value}")
+    return _graph_nodes(graph.value)
 
 
 def _pool_bytes(graph: torch.cuda.CUDAGraph) -> int:
@@ -187,7 +225,8 @@ class Graph:
 
     Call ``warm_up`` with the same function first.  ``generators``: every
     ``torch.Generator`` ``fn`` draws from.  The capture prints one JSON
-    line, {"cuda_graph": ...}, and appends it to ``REPORTS``."""
+    line, {"cuda_graph": ...}, and appends it to ``REPORTS``; its
+    ``parts`` holds the nodes of each part ``fn`` tags (``profiler.part``)."""
 
     def __init__(self, fn: Callable, args: Sequence, name: str,
                  generators: Sequence[torch.Generator] = ()):
@@ -203,7 +242,8 @@ class Graph:
             # thread_local: a render job's thread may use the device
             # meanwhile
             with self._counts.record(), torch.cuda.graph(
-                    self._graph, capture_error_mode="thread_local"):
+                    self._graph, capture_error_mode="thread_local"), \
+                    profiler.parts_counted(_capturing_nodes) as parts:
                 self.outputs = fn(*self.args)
             t1 = time.perf_counter()
             self._graph.instantiate()
@@ -212,9 +252,13 @@ class Graph:
         self._nodes = _node_count(self._graph)
         self.report = dict(
             name=name, capture_s=t1 - t0, instantiate_s=t2 - t1,
-            nodes=self._nodes, pool_bytes=_pool_bytes(self._graph),
+            nodes=self._nodes, parts=dict(parts.counts),
+            pool_bytes=_pool_bytes(self._graph),
             launches_per_replay=dict(launches),
             collectives_per_replay=dict(collectives))
+        # the counters a replay adds to
+        self._counters = [("graph_nodes", self._nodes)] + [
+            (f"graph_nodes.{p}", n) for p, n in parts.counts.items()]
         if span is not None:
             span.attrs = dict(graph=name, nodes=self._nodes,
                               pool_bytes=self.report["pool_bytes"])
@@ -225,5 +269,6 @@ class Graph:
     def replay(self):
         self._graph.replay()
         self._counts.replayed()
-        profiler.count("graph_nodes", self._nodes)
+        for name, n in self._counters:
+            profiler.count(name, n)
         return self.outputs

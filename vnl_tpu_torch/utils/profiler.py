@@ -16,25 +16,28 @@ device span:
     train.sgd                     the SGD passes
       sgd.shuffle            (d)  a pass's permutation and gathers
       sgd.update             (d)  one update: copy in, replay, copy out
+      sgd.flush              (d)  Adam's subnormal moments set to 0
     train.stats              (d)  the updates' stats stacked
   eval                            Evaluator.run_evaluation
   graph.capture                   a CUDA graph's capture and instantiation
 
-and counts ``graph_nodes`` (each replay adds its graph's node count) by
-training step.  The device spans of a training step hold every launch it
-makes, so where the device runs none of them it is idle.
+and counts ``graph_nodes`` (each replay adds its graph's node count) and
+``graph_nodes.<part>`` (its nodes of each tagged part: ``part``,
+utils/graphs.py) by training step.  The device spans of a training step
+hold every launch it makes, so where the device runs none of them it is
+idle.
 
 Spans are kept only while a ``recording(device)`` is open, and read once it
 has closed.  A device span then also records a CUDA timing event on the
 current stream as it opens and one as it closes (none while the stream
 captures a graph), from a pool made when the recording opens.  The events
 are resolved when it closes, onto the host clock by the anchor of the
-span's training step: an event recorded, with the host time, just after
-the synchronisation at the step's start.  On the CPU, which runs an
-operation as it is called, a device span's device interval is its host
-interval.  While a torch.profiler is active, every recorded span also opens
-a ``record_function`` range of its name, so a ``trace()`` file shows the
-trainer's phases.
+span's training step: an event recorded just after the synchronisation at
+the step's start, with the host time read once it has completed.  On the
+CPU, which runs an operation as it is called, a device span's device
+interval is its host interval.  While a torch.profiler is active, every
+recorded span also opens a ``record_function`` range of its name, so a
+``trace()`` file shows the trainer's phases.
 
 With no recording open, ``span`` returns one shared no-op context and
 ``count`` does nothing; ``timed`` spans (train.step, train.rollout,
@@ -47,7 +50,7 @@ import collections
 import contextlib
 import threading
 import time
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -158,7 +161,7 @@ class Recording:
         """Resolves the device spans' events onto the host clock, and
         measures the anchor's error: an event recorded after a
         synchronisation, placed by the last anchor, against the host time
-        read as it was recorded."""
+        read once it completed."""
         if not self._cuda:
             return
         torch.cuda.synchronize(self.device)
@@ -186,8 +189,12 @@ class Recording:
         return ev
 
     def _anchor_event(self) -> Tuple[torch.cuda.Event, int]:
-        host_ns = time.time_ns()
-        return self._event(), host_ns
+        """An event on the idle stream and the host time once it has
+        completed: the device reaches an event some microseconds after
+        the call that records it returns."""
+        ev = self._event()
+        ev.synchronize()
+        return ev, time.time_ns()
 
     def _enter(self, s: Span) -> None:
         if s.step is not None:                  # a training step begins
@@ -382,6 +389,80 @@ def count(name: str, n: int) -> None:
     rec = _recorder()
     if rec is not None:
         rec.counters[name][rec.step] += n
+
+
+class PartCounts:
+    """The count ``read()`` has grown by inside each tagged part (``part``):
+    a capture's graph nodes (utils/graphs.py), or what a caller counts."""
+
+    def __init__(self, read: Callable[[], int]):
+        self.read = read
+        self.stack: List[str] = []
+        self.counts: Dict[str, int] = collections.Counter()
+        self.outside = 0            # grown outside every part
+        self._at = read()
+
+    def mark(self) -> None:
+        """Puts what the count grew by since the last mark down to the
+        innermost part open."""
+        n = self.read()
+        if self.stack:
+            self.counts[self.stack[-1]] += n - self._at
+        else:
+            self.outside += n - self._at
+        self._at = n
+
+
+# the PartCounts of each thread's ``parts_counted`` block: the tags of
+# another thread (a render job's) neither count nor read the capture
+_parts = threading.local()
+
+
+@contextlib.contextmanager
+def parts_counted(read: Callable[[], int]):
+    """Counts ``read()`` by part (``part``) inside the block, on the
+    calling thread; yields the PartCounts."""
+    if getattr(_parts, "counts", None) is not None:
+        raise RuntimeError("parts are counted already")
+    _parts.counts = counts = PartCounts(read)
+    try:
+        yield counts
+        counts.mark()
+    finally:
+        _parts.counts = None
+
+
+class part:
+    """``with part(name):`` tags the work inside as part ``name`` of the
+    control step: a ``parts_counted`` block of the calling thread counts
+    what it adds, and while a torch.profiler is active it is a
+    ``record_function`` range ``part.<name>``, whose device time a trace
+    of an eager step gives (a graph's replay has no ranges).  Nothing
+    otherwise."""
+
+    __slots__ = ("name", "_counts", "_annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        self._counts = getattr(_parts, "counts", None)
+        if self._counts is not None:
+            self._counts.mark()
+            self._counts.stack.append(self.name)
+        self._annotation = None
+        if torch.autograd._profiler_enabled():
+            self._annotation = torch.profiler.record_function(
+                "part." + self.name)
+            self._annotation.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        if self._annotation is not None:
+            self._annotation.__exit__(None, None, None)
+        if self._counts is not None:
+            self._counts.mark()
+            self._counts.stack.pop()
+        return False
 
 
 def _tensors(x):
