@@ -20,7 +20,15 @@ Phases, in order; any failure exits non-zero:
      cg_inputs' packing) on 1024 twin contact states and on 1024 with
      contacts and limit rows near, at and past where they act (rtol 1e-5,
      atol 1e-5 of each output's largest entry), bit for bit across two
-     launches, timed at 1024 and 128 envs, with a row of its own;
+     launches, timed at 1024 and 128 envs, with a row of its own; then
+     kernel E (the narrowphase of every candidate pair) against the plain
+     narrowphase on the CPU on 1024 states of the box, round and
+     ellipsoid scenes (every pair type between them), the humanoid and
+     the twin (kernel_bench.check_collision: atol 2e-5; the points that
+     plane-box and box-box keep held to all their candidates), bit for
+     bit across two launches, timed at 1024 and 128 envs on the twin and
+     the humanoid with both instantiations' registers and spills, a row
+     each and a {"kernel_e": ...} line;
   4. the slice: RodentTracking (twin + clip) reset for 1024 envs and a
      20-control-step generate_unroll (100 physics substeps) with the keeper
      policy, sampling from a seeded generator, each control step one
@@ -190,7 +198,7 @@ Phases, in order; any failure exits non-zero:
      stepping bench eager and graphed,
      final states equal bit for bit; the launch counts of each pair equal;
      one more replay of each rollout's control-step graph traced with
-     torch.profiler, its kernels A, B, C and D equal to the launches the
+     torch.profiler, its kernels A to E equal to the launches the
      capture counts a replay (the counts a replay adds are those the
      device ran);
      then vnl_tpu_torch.profile_rollout and profile_train (fused; the
@@ -210,8 +218,9 @@ Phases, in order; any failure exits non-zero:
      {"cliplib_humanoid": ...} line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
-twin's A, B, D and C; B's widest route on the padded twin; A, B and D at
-the humanoid's shapes; A and C at the ant's; C at the humanoid's pair) with
+twin's A, B, D, E and C; B's widest route on the padded twin; A, B, D
+and E at the humanoid's shapes; A and C at the ant's; C at the humanoid's
+pair) with
 its launches on the paths that run that shape (phase 14 counts for each
 scene it runs; for B's widest route, ops.launch_counts["cg_widest"]
 summed over every path the run drives, which must be 0: no scene has
@@ -489,6 +498,105 @@ def phase_kernel_d(m, gen, name="constraints", press=0.005):
     return row, errs
 
 
+def collision_bytes(m, batch):
+    """Bytes kernel E moves for ``batch`` envs: reads the position and
+    rotation of each geom a candidate pair names, writes each contact
+    slot's distance, point and frame (the pair tables, one copy for every
+    env, stay in L2)."""
+    from vnl_tpu_torch.physics import collision
+    pair = collision.pair_expansion(m)
+    geoms = np.unique(np.concatenate([np.asarray(m.pair_geom1)[pair],
+                                      np.asarray(m.pair_geom2)[pair]]))
+    return 4 * batch * (12 * len(geoms) + 13 * len(pair))
+
+
+# kernel E's scenes: every pair type between the first three
+E_SCENES = ("boxes", "round", "ellipsoid", "humanoid", "twin")
+
+
+def phase_kernel_e(device, gen):
+    """Kernel E against the plain narrowphase on the CPU
+    (kernel_bench.check_collision) on BATCH states of each of E_SCENES, and
+    bit for bit across two launches; on the twin and the humanoid timed at
+    BATCH and 128 envs, beside the plain version on the card.  Returns
+    (kernels rows, errors)."""
+    from vnl_tpu_torch import compat, kernel_bench as kb, mjcf
+    from vnl_tpu_torch.ops import collision as col_ops
+    from vnl_tpu_torch.physics import collision, forward, kinematics
+    xml = dict(boxes=kb.BOX_SCENE, round=kb.ROUND_SCENE,
+               ellipsoid=kb.ELLIPSOID_SCENE, humanoid=compat.DM_HUMANOID_XML)
+
+    def model(name, dev):
+        if name == "twin":
+            return compat.model_from_numpy(compat.TWIN_MODEL, device=dev)
+        return mjcf.load_model(xml[name], device=dev)
+
+    def data(m, name, batch):
+        if name == "twin":
+            qpos = kb.random_states(m, batch, gen)
+            qpos[:, 2] -= 0.02
+        else:
+            qpos = torch.as_tensor(kb.collision_states(
+                m.qpos0.cpu().numpy(), m.jnt_range.cpu().numpy(),
+                name == "humanoid", SEED + batch, batch), device=device)
+        return kinematics.kinematics(m, forward.make_data(m, batch,
+                                                          qpos=qpos))
+
+    errs, rows = {}, []
+    for name in E_SCENES:
+        m = model(name, device)
+        d = data(m, name, BATCH)
+        gx, gm = d.geom_xpos.contiguous(), d.geom_xmat.contiguous()
+        ker = col_ops.collide(m, gx, gm)
+        same_bits(f"collision {name}", ker[:3],
+                  col_ops.collide(m, gx, gm)[:3])
+        errs[name] = dict(kb.check_collision(
+            ker, model(name, "cpu"), d.replace(
+                qpos=d.qpos.cpu(), geom_xpos=gx.cpu(), geom_xmat=gm.cpu()),
+            flat_env=name == "boxes"), active=int((ker[0] < 0).sum()))
+        if name not in ("twin", "humanoid"):
+            continue
+        timed = {}
+        for batch in (BATCH, 128):
+            db = data(m, name, batch)
+            x, r = db.geom_xpos.contiguous(), db.geom_xmat.contiguous()
+            timed[batch] = (
+                kb.time_ms(lambda: col_ops.collide(m, x, r),
+                           queued=kb.QUEUED),
+                kb.time_ms(lambda: collision.collide_plain(m, db), reps=5))
+        res = col_ops.resources(m)
+        took = res[res["takes"]]
+        t = col_ops.kernel_tables(m)
+        rows.append(dict(
+            name="collision" if name == "twin" else "collision_humanoid",
+            kernel="collision", route="cuda",
+            shape=dict(batch=BATCH, npair=len(t["pair"]),
+                       ncon=len(t["con_pair"]),
+                       instantiation="collision_kernel<%s>" % (
+                           "true" if t["boxes"] else "false")),
+            source="vnl_tpu_torch/csrc/collision.cu",
+            replaces="vnl_tpu_torch/physics/collision.py collide_plain",
+            max_abs_err=max(errs[name][k] for k in ("dist", "pos", "frame")),
+            ms=timed[BATCH][0], plain_ms=timed[BATCH][1],
+            ms_128=timed[128][0], plain_ms_128=timed[128][1],
+            bound_ms=bound_ms(collision_bytes(m, BATCH), 0)[0],
+            bound_by="bytes",
+            bound_ms_128=bound_ms(collision_bytes(m, 128), 0)[0],
+            library_ms=None, regs=took["regs"],
+            smem_bytes=took["smem_bytes"],
+            blocks_per_sm=took["blocks_per_sm"],
+            local_bytes=took["local_bytes"],
+            spill_bytes=spill_bytes("collision", "ILb%dEE" % t["boxes"]),
+            instantiations={k: dict(res[k], spill_bytes=spill_bytes(
+                "collision", "ILb%dEE" % (k == "boxes")))
+                for k in ("boxes", "no_boxes")}))
+    print(json.dumps({"kernel_e": dict(errors=errs, rows=[{k: r[k] for k in (
+        "name", "shape", "ms", "ms_128", "plain_ms", "plain_ms_128",
+        "bound_ms", "bound_ms_128", "regs", "local_bytes", "blocks_per_sm",
+        "instantiations")} for r in rows])}), flush=True)
+    return rows, errs
+
+
 WIDEST_PAD = 240      # inactive contacts added to the twin's 23: 1,052 rows
 
 
@@ -579,15 +687,16 @@ def unroll(env, make_policy, graphed, again=False):
     return out
 
 
-# the launch counters of kernels A, B, C and D, and the group by which
+# the launch counters of kernels A to E, and the group by which
 # profile_rollout.device_groups names each kernel's routes
 COUNTED_GROUPS = (("position", "kernel A (position)"),
                   ("cg", "kernel B (cg)"), ("sweep", "kernel C (sweep)"),
-                  ("constraints", "kernel D (constraints)"))
+                  ("constraints", "kernel D (constraints)"),
+                  ("collision", "kernel E (collision)"))
 
 
 def profiled_launches(run) -> dict:
-    """The launches of kernels A, B, C and D on the device while ``run()``
+    """The launches of kernels A to E on the device while ``run()``
     runs, by launch counter, counted in a torch.profiler trace of it: for
     a graph replay, the kernels that really ran, beside the counts that
     ops.ReplayCounts adds for it from its capture."""
@@ -1890,7 +1999,7 @@ def rollout_pair(tag, env, make_policy):
         counter, 0) for counter, _ in COUNTED_GROUPS}
     if graphed["profiled"] != per_replay or not any(per_replay.values()):
         raise AssertionError(f"{tag}: a profiled control-step replay ran "
-                             f"{graphed['profiled']} of kernels A, B, C; "
+                             f"{graphed['profiled']} of kernels A to E; "
                              f"its capture counts {per_replay}")
     return graphed["counts"], dict(
         compared=len(list(graphs.named_leaves(
@@ -1975,14 +2084,14 @@ def eval_metrics(metrics) -> dict:
 
 def replay_profiled(tag, graph) -> dict:
     """One more replay of an envs.StateGraph traced with torch.profiler:
-    the kernels A, B, C and D it ran must be the launches its capture counts
+    the kernels A to E it ran must be the launches its capture counts
     a replay.  Returns them."""
     per_replay = {counter: graph.report["launches_per_replay"].get(
         counter, 0) for counter, _ in COUNTED_GROUPS}
     ran = profiled_launches(lambda: graph(graph.state))
     if ran != per_replay or not any(per_replay.values()):
         raise AssertionError(f"{tag}: a profiled replay ran {ran} of "
-                             f"kernels A, B, C; its capture counts "
+                             f"kernels A to E; its capture counts "
                              f"{per_replay}")
     return ran
 
@@ -2342,6 +2451,7 @@ def main() -> int:
     row_b, errs_b = phase_kernel_b(m, gen)
     row_bw, errs_bw = phase_kernel_b_widest(m, gen)
     row_d, errs_d = phase_kernel_d(m, gen)
+    rows_e, errs_e = phase_kernel_e(device, gen)
     counts, info["rollout"] = phase_rollout(device)
     row_c, errs_c = phase_kernel_c(m, gen)
     counts_fused, info["training_fused"] = phase_training(True, steps=2)
@@ -2368,8 +2478,8 @@ def main() -> int:
                           counts_graphs["humanoid"], counts_run_h)
     counts_ant = add_counts(counts_ant, counts_num["ant"],
                             counts_graphs["ant"])
-    kernels = [row_a, row_b, row_bw, row_d, row_c] + rows_h + rows_ant + \
-        [row_ch]
+    kernels = [row_a, row_b, row_bw, row_d] + rows_e + [row_c] + rows_h + \
+        rows_ant + [row_ch]
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
         # phases 4, 6, 7, 11, 12, 13, 14, 15, 16; the humanoid's: 8, 14,
@@ -2394,6 +2504,7 @@ def main() -> int:
                                  "its paths")
     info["details"] = dict({"position": errs_a, "cg": errs_b,
                             "cg_widest": errs_bw, "constraints": errs_d,
+                            "collision": errs_e,
                             "sweep": errs_c},
                            **errs_h, **errs_ant)
 

@@ -28,52 +28,11 @@ from vnl_tpu_torch.physics import collision as tcol
 from vnl_tpu_torch.physics import kinematics as tkin
 
 import torch_parity as tp
+from vnl_tpu_torch.kernel_bench import (BOX_SCENE, ELLIPSOID_SCENE,
+                                        ROUND_SCENE, assert_same_sets,
+                                        collision_states, kept_slots)
 
 B = 4
-
-# every pair type beside the floor but capsules: plane-{sphere, cylinder,
-# box}, sphere-box, box-box (the cylinder only meets the floor)
-BOX_SCENE = """<mujoco>
-  <worldbody>
-    <geom name="floor" type="plane" size="5 5 0.1"/>
-    <body name="cyl" pos="0 0 0.19"><freejoint/>
-      <geom type="cylinder" size="0.1 0.2" density="300"/></body>
-    <body name="box1" pos="1 0 0.08"><freejoint/>
-      <geom type="box" size="0.1 0.12 0.08" density="300"/></body>
-    <body name="box2" pos="1.03 0.02 0.25"><freejoint/>
-      <geom type="box" size="0.09 0.1 0.09" density="300"/></body>
-    <body name="ball" pos="1.0 0.2 0.1"><freejoint/>
-      <geom type="sphere" size="0.1" density="300"/></body>
-  </worldbody>
-  <contact>
-    <exclude body1="cyl" body2="box1"/><exclude body1="cyl" body2="box2"/>
-    <exclude body1="cyl" body2="ball"/>
-  </contact>
-</mujoco>"""
-
-# plane-{sphere, capsule, ellipsoid}, sphere-sphere, sphere-capsule,
-# capsule-capsule
-ROUND_SCENE = """<mujoco>
-  <worldbody>
-    <geom name="floor" type="plane" size="5 5 0.1"/>
-    <body name="s1" pos="0 0 0.1"><freejoint/>
-      <geom type="sphere" size="0.1"/></body>
-    <body name="s2" pos="0.15 0.05 0.12"><freejoint/>
-      <geom type="sphere" size="0.08"/></body>
-    <body name="c1" pos="0.1 0.2 0.06" euler="0 90 0"><freejoint/>
-      <geom type="capsule" size="0.05 0.2"/></body>
-    <body name="c2" pos="0.15 0.25 0.12" euler="90 0 30"><freejoint/>
-      <geom type="capsule" size="0.04 0.15"/></body>
-  </worldbody>
-</mujoco>"""
-
-ELLIPSOID_SCENE = """<mujoco>
-  <worldbody>
-    <geom name="floor" type="plane" size="5 5 0.1"/>
-    <body name="e" pos="0 0 0.1"><freejoint/>
-      <geom type="ellipsoid" size="0.1 0.15 0.08"/></body>
-  </worldbody>
-</mujoco>"""
 
 SCENES = {"boxes": BOX_SCENE, "round": ROUND_SCENE,
           "ellipsoid": ELLIPSOID_SCENE, "humanoid": tp.HUMANOID_XML,
@@ -81,31 +40,9 @@ SCENES = {"boxes": BOX_SCENE, "round": ROUND_SCENE,
 
 
 def _states(jm, name, seed):
-    """qpos float32 (B, nq): free bodies jittered in position and
-    orientation around their placement (env 0 exactly at it), or the
-    humanoid dropped near the floor with random limbs."""
-    rng = np.random.default_rng(seed)
-    qpos = np.tile(np.asarray(jm.qpos0, np.float64), (B, 1))
-    if name == "humanoid":
-        qpos[:, 2] = rng.uniform(0.1, 0.6, size=B)
-        quat = np.array([1.0, 0, 0, 0]) + 0.6 * rng.normal(size=(B, 4))
-        qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
-        lo, hi = np.asarray(jm.jnt_range[1:]).T
-        qpos[:, 7:] = rng.uniform(lo, hi, size=(B, len(lo)))
-        return qpos.astype(np.float32)
-    for a in range(0, jm.nq, 7):               # free joints only
-        pos = 0.02 * rng.normal(size=(B, 3))
-        quat = np.array([1.0, 0, 0, 0]) + 0.15 * rng.normal(size=(B, 4))
-        pos[0], quat[0] = 0.0, [1.0, 0, 0, 0]
-        qpos[:, a:a + 3] += pos
-        q = qpos[:, a + 3:a + 7]
-        qpos[:, a + 3:a + 7] = np.stack([
-            quat[:, 0] * q[:, 0] - np.sum(quat[:, 1:] * q[:, 1:], 1),
-            *(quat[:, 0:1] * q[:, 1:] + q[:, 0:1] * quat[:, 1:]
-              + np.cross(quat[:, 1:], q[:, 1:])).T], 1)
-        qpos[:, a + 3:a + 7] /= np.linalg.norm(qpos[:, a + 3:a + 7], axis=1,
-                                               keepdims=True)
-    return qpos.astype(np.float32)
+    """qpos float32 (B, nq) of kernel_bench.collision_states."""
+    return collision_states(jm.qpos0, jm.jnt_range, name == "humanoid",
+                            seed, B)
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,26 +93,8 @@ def _deepest_slots(jm):
     """Per plane-box or box-box candidate pair, the slots of its kept
     points; and the mask of every other slot."""
     jcol = tp.jax_module("vnl_tpu.physics.collision")
-    con_pair = jcol.pair_expansion(jm)
-    gt = np.asarray(jm.geom_type)
-    t2 = gt[np.asarray(jm.pair_geom2)[con_pair]]
-    kept = t2 == tcol.GeomType.BOX
-    kept &= gt[np.asarray(jm.pair_geom1)[con_pair]] != tcol.GeomType.SPHERE
-    groups = [np.nonzero(kept & (con_pair == p))[0]
-              for p in np.unique(con_pair[kept])]
-    return groups, ~kept
-
-
-def _assert_same_sets(tdist, tpos, jdist, jpos, name):
-    """Each port point (dist, pos) matched one to one with a JAX point."""
-    for b in range(tdist.shape[0]):
-        free = list(range(tdist.shape[1]))
-        for i in range(tdist.shape[1]):
-            err = [max(abs(tdist[b, i] - jdist[b, j]),
-                       np.abs(tpos[b, i] - jpos[b, j]).max()) for j in free]
-            j = int(np.argmin(err))
-            assert err[j] <= 2e-5, (name, b, i, err[j])
-            free.pop(j)
+    return kept_slots(jm.geom_type, jm.pair_geom1, jm.pair_geom2,
+                      jcol.pair_expansion(jm))
 
 
 @pytest.mark.parametrize("field", ["dist", "pos", "frame"])
@@ -191,10 +110,10 @@ def test_collide_matches(collided, field):
                             np.asarray(jout[2])[:, slots], 0.0, 2e-5,
                             f"{name} frame")
         else:
-            _assert_same_sets(tout[0][:, slots].numpy(),
-                              tout[1][:, slots].numpy(),
-                              np.asarray(jout[0])[:, slots],
-                              np.asarray(jout[1])[:, slots], name)
+            assert_same_sets(tout[0][:, slots].numpy(),
+                             tout[1][:, slots].numpy(),
+                             np.asarray(jout[0])[:, slots],
+                             np.asarray(jout[1])[:, slots], name)
         # exact ties (env 0 lies flat) keep the JAX slots
         tp.assert_close(tout[k][0, slots], np.asarray(jout[k])[0, slots],
                         0.0, 2e-5, f"{name} {field} flat")

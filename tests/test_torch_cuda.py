@@ -373,16 +373,18 @@ def test_sweep_kernel_matches_plain(model, n, count):
 
 @pytest.mark.cuda
 def test_unfused_step_launches_kernel_c(model):
-    """One control step of the unfused stage: kernel C once, kernels D and
-    B on every substep, kernel A never."""
+    """One control step of the unfused stage: kernel C once, kernels E, D
+    and B on every substep, kernel A never."""
     from vnl_tpu_torch.envs.base import PipelineEnv
     qpos, qvel = _states(model, press=0.005)
     env = PipelineEnv(model, n_frames=5, fused_position=False)
     launch_counts.clear()
     d = env.pipeline_init(qpos, qvel)
-    assert dict(launch_counts) == {"sweep": 1, "constraints": 1, "cg": 1}
+    assert dict(launch_counts) == {"sweep": 1, "collision": 1,
+                                   "constraints": 1, "cg": 1}
     d = env.pipeline_step(d, torch.zeros(B, model.nu, device="cuda"))
-    assert dict(launch_counts) == {"sweep": 2, "constraints": 6, "cg": 6}
+    assert dict(launch_counts) == {"sweep": 2, "collision": 6,
+                                   "constraints": 6, "cg": 6}
     assert bool(torch.isfinite(d.qpos).all())
 
 
@@ -508,13 +510,14 @@ def test_sweep_kernel_ant_newton_hessians(ant):
 @pytest.mark.cuda
 def test_ant_step_launches(ant):
     """One RK4 physics step of the ant: four forward passes, each kernel
-    A once and kernel C once (Newton's H^-1, one iteration), B never."""
+    A, E and C once each (C: Newton's H^-1, one iteration), B never."""
     qpos = _free_states(ant, B, 0.3)
     qpos[:, 2] -= 0.3
     d = forward.make_data(ant, B, qpos=qpos)
     launch_counts.clear()
     d = forward.step(ant, d)
-    assert dict(launch_counts) == {"position": 4, "sweep": 4}
+    assert dict(launch_counts) == {"position": 4, "collision": 4,
+                                   "sweep": 4}
     assert bool(torch.isfinite(d.qpos).all())
 
 
@@ -644,7 +647,7 @@ def test_control_step_graph_is_the_eager_step(model):
         runs.append((graphs.clone(state), roll, dict(launch_counts)))
     _assert_nests_equal(runs[1][:2], runs[0][:2])
     assert runs[1][2] == runs[0][2] and runs[0][2]["position"] == 20
-    assert runs[0][2]["constraints"] == 20
+    assert runs[0][2]["constraints"] == runs[0][2]["collision"] == 20
 
 
 @pytest.mark.cuda

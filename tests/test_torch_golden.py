@@ -176,15 +176,16 @@ def test_refuses_a_missing_cuda_device(monkeypatch):
 
 
 def test_expected_launches():
-    assert cn.expected_launches("twin", True, 20) == {"position": 100,
-                                                      "cg": 100}
+    assert cn.expected_launches("twin", True, 20) == {
+        "position": 100, "cg": 100, "collision": 100}
     assert cn.expected_launches("humanoid", False, 0) == {
-        "position": 0, "sweep": 1, "cg": 1}
-    assert cn.expected_launches("ant", True, 20) == {"position": 400,
-                                                     "sweep": 400}
-    assert cn.expected_launches("ant", False, 20) == {"position": 0,
-                                                      "sweep": 400}
+        "position": 0, "sweep": 1, "cg": 1, "collision": 1}
+    assert cn.expected_launches("ant", True, 20) == {
+        "position": 400, "sweep": 400, "collision": 400}
+    assert cn.expected_launches("ant", False, 20) == {
+        "position": 0, "sweep": 400, "collision": 400}
     need = cn.expected_launches("humanoid", False, 20)
-    assert cn.launch_misses({"sweep": 20, "cg": 100}, need) == []
+    assert cn.launch_misses({"sweep": 20, "cg": 100, "collision": 100},
+                            need) == []
     assert len(cn.launch_misses({"position": 1, "sweep": 19, "cg": 100},
-                                need)) == 2
+                                need)) == 3

@@ -34,9 +34,9 @@ max |dqacc| < 5e-2 max(|qacc| scale, 1) (check_tpu_numerics.py:86); max
 
 On a CUDA device every part must launch its kernels (``ops.
 launch_counts``): A and B on the twin and the humanoid, A and C on the
-ant, C in every unfused part (n 27 on the humanoid).  Any miss exits
-non-zero.  With ``--device cpu`` the kernel wrappers run their plain
-versions and the launch counts are not asserted.
+ant, E on all three, C in every unfused part (n 27 on the humanoid).
+Any miss exits non-zero.  With ``--device cpu`` the kernel wrappers run
+their plain versions and the launch counts are not asserted.
 
   python -m vnl_tpu_torch.check_numerics [--device cuda|cpu]
       [--batch 1024] [--out FILE]
@@ -93,13 +93,14 @@ def expected_launches(scene: str, fused: bool, steps: int) -> dict:
     """{kernel: least launches} of a part of ``steps`` control steps (0: one
     forward pass) of one batch, and ``0`` for the position kernel where
     the stage is unfused: A and B on the twin and the humanoid, A and C
-    (Newton's H^-1) on the ant, in every forward pass; unfused, C instead
-    of A, at least once a control step (its first substep inverts
-    exactly, the others refine)."""
+    (Newton's H^-1) on the ant, and E on all three, in every forward
+    pass; unfused, C instead of A, at least once a control step (its
+    first substep inverts exactly, the others refine)."""
     passes = max(steps * SUBSTEPS * (RK4_PASSES if scene == "ant" else 1), 1)
     need = {"position": passes} if fused else {"position": 0,
                                                "sweep": max(steps, 1)}
     need["sweep" if scene == "ant" else "cg"] = passes
+    need["collision"] = passes
     return need
 
 

@@ -14,7 +14,11 @@ iteration's Hessians, else the stacked pair), beside one launch of a
 one-element torch add, the floor of a launch in this timer, and reads
 each kernel's registers, local-memory bytes, shared memory and resident
 blocks per SM.  ``check_cg`` is the yardstick that holds kernel B against
-its plain version; ``constraint_states`` makes kernel D's inputs.  ``python3 -m vnl_tpu_torch.profile_rollout`` prints
+its plain version; ``constraint_states`` makes kernel D's inputs;
+``check_collision`` holds kernel E against its plain version on the CPU,
+on the narrowphase tests' scenes (``BOX_SCENE``, ``ROUND_SCENE``,
+``ELLIPSOID_SCENE``: every pair type between them) and poses
+(``collision_states``).  ``python3 -m vnl_tpu_torch.profile_rollout`` prints
 it as one JSON line; ``chip_smoke.py`` takes its inputs and its timer
 from here.
 """
@@ -304,6 +308,193 @@ def twin_pair(m, qpos):
     qM = pos._launch(m, qpos)[11]
     hB = torch.diag(m.opt.timestep * m.dof_damping)
     return torch.stack([qM, qM + hB]).contiguous()
+
+
+# ---- kernel E: the narrowphase tests' scenes, poses and yardstick ----
+
+# every pair type beside the floor but capsules: plane-{sphere, cylinder,
+# box}, sphere-box, box-box (the cylinder only meets the floor)
+BOX_SCENE = """<mujoco>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="cyl" pos="0 0 0.19"><freejoint/>
+      <geom type="cylinder" size="0.1 0.2" density="300"/></body>
+    <body name="box1" pos="1 0 0.08"><freejoint/>
+      <geom type="box" size="0.1 0.12 0.08" density="300"/></body>
+    <body name="box2" pos="1.03 0.02 0.25"><freejoint/>
+      <geom type="box" size="0.09 0.1 0.09" density="300"/></body>
+    <body name="ball" pos="1.0 0.2 0.1"><freejoint/>
+      <geom type="sphere" size="0.1" density="300"/></body>
+  </worldbody>
+  <contact>
+    <exclude body1="cyl" body2="box1"/><exclude body1="cyl" body2="box2"/>
+    <exclude body1="cyl" body2="ball"/>
+  </contact>
+</mujoco>"""
+
+# plane-{sphere, capsule, ellipsoid}, sphere-sphere, sphere-capsule,
+# capsule-capsule
+ROUND_SCENE = """<mujoco>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="s1" pos="0 0 0.1"><freejoint/>
+      <geom type="sphere" size="0.1"/></body>
+    <body name="s2" pos="0.15 0.05 0.12"><freejoint/>
+      <geom type="sphere" size="0.08"/></body>
+    <body name="c1" pos="0.1 0.2 0.06" euler="0 90 0"><freejoint/>
+      <geom type="capsule" size="0.05 0.2"/></body>
+    <body name="c2" pos="0.15 0.25 0.12" euler="90 0 30"><freejoint/>
+      <geom type="capsule" size="0.04 0.15"/></body>
+  </worldbody>
+</mujoco>"""
+
+ELLIPSOID_SCENE = """<mujoco>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="e" pos="0 0 0.1"><freejoint/>
+      <geom type="ellipsoid" size="0.1 0.15 0.08"/></body>
+  </worldbody>
+</mujoco>"""
+
+
+def collision_states(qpos0, jnt_range, humanoid: bool, seed: int,
+                     batch: int) -> np.ndarray:
+    """qpos float32 (batch, nq) of a model with qpos0 and jnt_range: free
+    bodies jittered in position and orientation around their placement
+    (env 0 exactly at it), or the humanoid dropped near the floor with
+    random limbs."""
+    rng = np.random.default_rng(seed)
+    qpos0 = np.asarray(qpos0, np.float64)
+    nq = len(qpos0)
+    qpos = np.tile(qpos0, (batch, 1))
+    if humanoid:
+        qpos[:, 2] = rng.uniform(0.1, 0.6, size=batch)
+        quat = np.array([1.0, 0, 0, 0]) + 0.6 * rng.normal(size=(batch, 4))
+        qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+        lo, hi = np.asarray(jnt_range[1:]).T
+        qpos[:, 7:] = rng.uniform(lo, hi, size=(batch, len(lo)))
+        return qpos.astype(np.float32)
+    for a in range(0, nq, 7):                  # free joints only
+        pos = 0.02 * rng.normal(size=(batch, 3))
+        quat = np.array([1.0, 0, 0, 0]) + 0.15 * rng.normal(size=(batch, 4))
+        pos[0], quat[0] = 0.0, [1.0, 0, 0, 0]
+        qpos[:, a:a + 3] += pos
+        q = qpos[:, a + 3:a + 7]
+        qpos[:, a + 3:a + 7] = np.stack([
+            quat[:, 0] * q[:, 0] - np.sum(quat[:, 1:] * q[:, 1:], 1),
+            *(quat[:, 0:1] * q[:, 1:] + q[:, 0:1] * quat[:, 1:]
+              + np.cross(quat[:, 1:], q[:, 1:])).T], 1)
+        qpos[:, a + 3:a + 7] /= np.linalg.norm(qpos[:, a + 3:a + 7], axis=1,
+                                               keepdims=True)
+    return qpos.astype(np.float32)
+
+
+def kept_slots(geom_type, pair_geom1, pair_geom2, con_pair):
+    """Per plane-box or box-box candidate pair, the slots of its kept
+    (deepest) points; and the mask of every other slot."""
+    from vnl_tpu_torch.physics.model import GeomType
+    gt = np.asarray(geom_type)
+    con_pair = np.asarray(con_pair)
+    kept = gt[np.asarray(pair_geom2)[con_pair]] == GeomType.BOX
+    kept &= gt[np.asarray(pair_geom1)[con_pair]] != GeomType.SPHERE
+    groups = [np.nonzero(kept & (con_pair == p))[0]
+              for p in np.unique(con_pair[kept])]
+    return groups, ~kept
+
+
+def assert_same_sets(tdist, tpos, jdist, jpos, name, atol=2e-5):
+    """Each point (dist, pos) of the first pair of arrays matched one to one
+    with a point of the second, per env, within ``atol``."""
+    for b in range(tdist.shape[0]):
+        free = list(range(tdist.shape[1]))
+        for i in range(tdist.shape[1]):
+            err = [max(abs(tdist[b, i] - jdist[b, j]),
+                       np.abs(tpos[b, i] - jpos[b, j]).max()) for j in free]
+            j = int(np.argmin(err))
+            if not err[j] <= atol:
+                raise AssertionError(f"{name}: env {b} point {i} is "
+                                     f"{err[j]:.3e} from every point")
+            free.pop(j)
+
+
+def box_candidates(m, d):
+    """{candidate pair: (dist (B, n), pos (B, n, 3))}: every candidate point
+    of each plane-box (8 corners) and box-box pair (25) by the plain
+    version, from which it keeps the deepest (4 and 8)."""
+    from vnl_tpu_torch.physics import collision
+    from vnl_tpu_torch.physics.model import GeomType
+    out = {}
+    for a, b, _, idx in collision._groups(m):
+        if b != GeomType.BOX or a == GeomType.SPHERE:
+            continue
+        g1, g2 = m.index(m.pair_geom1[idx]), m.index(m.pair_geom2[idx])
+        args = (d.geom_xpos[:, g1], d.geom_xmat[:, g1], m.geom_size[g1],
+                d.geom_xpos[:, g2], d.geom_xmat[:, g2], m.geom_size[g2])
+        fn = (collision._pp_box_candidates if a == GeomType.PLANE
+              else collision._box_box_candidates)
+        dist, pos = fn(*args)[:2]
+        for i, p in enumerate(idx.tolist()):
+            out[p] = (dist[:, i].cpu().numpy(), pos[:, i].cpu().numpy())
+    return out
+
+
+def assert_kept(tdist, tpos, wdist, cand_dist, cand_pos, name, atol=2e-5):
+    """The points (tdist (B, k), tpos (B, k, 3)) that a pair keeps against
+    the plain version's kept distances ``wdist`` and all its candidates:
+    per env the same k depths, sorted, within ``atol``, and each point one
+    of the candidates, one to one.  Candidates tied within rounding at the
+    k-th depth may be kept either way."""
+    for b in range(tdist.shape[0]):
+        err = np.abs(np.sort(tdist[b]) - np.sort(wdist[b])).max()
+        if not err <= atol:
+            raise AssertionError(f"{name}: env {b} keeps depths {err:.3e} "
+                                 "from the plain version's")
+        free = list(range(cand_dist.shape[1]))
+        for i in range(tdist.shape[1]):
+            e = [max(abs(tdist[b, i] - cand_dist[b, j]),
+                     np.abs(tpos[b, i] - cand_pos[b, j]).max()) for j in free]
+            j = int(np.argmin(e))
+            if not e[j] <= atol:
+                raise AssertionError(f"{name}: env {b} point {i} is "
+                                     f"{e[j]:.3e} from every candidate")
+            free.pop(j)
+
+
+def check_collision(got, m, d, flat_env: bool = False) -> dict:
+    """Kernel E's contacts ``got`` (collide's four outputs, on any device)
+    against collision.collide_plain of the CPU model ``m`` on the CPU Data
+    ``d``: distances, points and frames at atol 2e-5 (the narrowphase
+    tests' tolerance); plane-box and box-box pairs by ``assert_kept``,
+    their frames slot for slot; with ``flat_env``, env 0 (lying exactly
+    flat: exact ties) slot for slot.  Raises AssertionError; returns the
+    largest error of each output."""
+    from vnl_tpu_torch.physics import collision
+    want = collision.collide_plain(m, d)
+    got = [x.cpu() for x in got[:3]] + [got[3]]
+    np.testing.assert_array_equal(got[3], want[3])
+    groups, direct = kept_slots(m.geom_type, m.pair_geom1, m.pair_geom2,
+                                want[3])
+    errs = {}
+    for k, field in enumerate(("dist", "pos", "frame")):
+        if got[k].shape != want[k].shape:
+            raise AssertionError(f"{field}: shape {tuple(got[k].shape)}")
+        errs[field] = float((got[k][:, direct] - want[k][:, direct])
+                            .abs().max())
+    cands = box_candidates(m, d)
+    for slots in groups:
+        errs["frame"] = max(errs["frame"], float(
+            (got[2][:, slots] - want[2][:, slots]).abs().max()))
+        assert_kept(got[0][:, slots].numpy(), got[1][:, slots].numpy(),
+                    want[0][:, slots].numpy(),
+                    *cands[int(want[3][slots[0]])], "kept points")
+        if flat_env:
+            errs["flat"] = max([errs.get("flat", 0.0)] + [float(
+                (got[k][0, slots] - want[k][0, slots]).abs().max())
+                for k in range(3)])
+    for field, e in errs.items():
+        if not e <= 2e-5:
+            raise AssertionError(f"kernel E {field}: {e:.3e} beyond 2e-5")
+    return errs
 
 
 SCENE_PRESS = dict(humanoid=0.3, ant=0.3)   # both float at qpos0

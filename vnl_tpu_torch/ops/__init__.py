@@ -2,7 +2,8 @@
 version (ops/position.py: kernel A, the fused position stage; ops/cg.py:
 kernel B, the CG contact solve; ops/sweep.py: kernel C, the SPD sweep
 inverse of the unfused position stage; ops/constraints.py: kernel D, the
-limit and contact constraint system of a substep as kernel B takes it).
+limit and contact constraint system of a substep as kernel B takes it;
+ops/collision.py: kernel E, the narrowphase of every pair of a substep).
 
 ``launch_counts`` counts kernel launches by name; a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main

@@ -22,6 +22,9 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# flags of single sources: kernel E rounds each operation on its own, as
+# the plain version's separate PyTorch operations do
+FLAGS = {"collision": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -51,7 +54,7 @@ def _target(name: str) -> str:
                                      if f.endswith(".cuh")):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
-    h.update(ARCH.encode())
+    h.update(" ".join((ARCH,) + FLAGS.get(name, ())).encode())
     digest = h.hexdigest()[:12]
     return os.path.join(build_dir(), f"lib{name}-{digest}.so")
 
@@ -70,8 +73,8 @@ def build_all() -> Dict[str, str]:
         # launch may build the same library at once
         tmp = f".{os.getpid()}.tmp"
         for n, t in todo.items():
-            cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            cmd = [nvcc, ARCH, *FLAGS.get(n, ()), "-std=c++17", "-O3",
+                   "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                    "-o", t + tmp, os.path.join(CSRC, f"{n}.cu")]
             procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)

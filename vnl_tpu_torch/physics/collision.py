@@ -15,6 +15,10 @@ edge-edge closest points, each active only when the SAT minimum is its
 axis), the 8 deepest kept.  "Deepest" is a stable sort (ties keep the lower
 index first, as XLA's top_k does), so tied corners land in the same slots
 as in the JAX package.
+
+On a CUDA device ``collide`` launches kernel E (ops/collision.py,
+csrc/collision.cu), one launch for all pair groups; ``collide_plain`` is
+the plain version, the CPU's path and the kernel's yardstick.
 """
 
 from __future__ import annotations
@@ -108,8 +112,9 @@ def _seg_closest(p0, d0, h0, p1, d1, h1):
     return p0 + s[..., None] * d0, p1 + u[..., None] * d1
 
 
-def _box_box(pa, Ra, sa, pb, Rb, sb):
-    """SAT box-box: returns (dist (.., 8), pos (.., 8, 3), n (.., 3))."""
+def _box_box_candidates(pa, Ra, sa, pb, Rb, sb):
+    """SAT box-box's 25 candidates: (dist (.., 25), pos (.., 25, 3),
+    n (.., 3))."""
     dtype, dev = pa.dtype, pa.device
     R = torch.einsum("...ji,...jk->...ik", Ra, Rb)     # B axes in A frame
     t = torch.einsum("...ji,...j->...i", Ra, pb - pa)
@@ -175,6 +180,13 @@ def _box_box(pa, Ra, sa, pb, Rb, sb):
             e_poss.append(0.5 * (q0 + q1))
     dist_all = torch.cat([dist_b, dist_a, torch.stack(e_dists, -1)], -1)
     pos_all = torch.cat([pos_b, pos_a, torch.stack(e_poss, -2)], -2)
+    return dist_all, pos_all, n
+
+
+def _box_box(pa, Ra, sa, pb, Rb, sb):
+    """SAT box-box: returns (dist (.., 8), pos (.., 8, 3), n (.., 3)), the
+    8 deepest candidates."""
+    dist_all, pos_all, n = _box_box_candidates(pa, Ra, sa, pb, Rb, sb)
     top = _deepest(dist_all, 8)
     dist8 = torch.gather(dist_all, -1, top)
     pos8 = torch.gather(pos_all, -2, top[..., None].expand(top.shape + (3,)))
@@ -258,16 +270,22 @@ def _pp_cylinder(x1, R1, s1, x2, R2, s2):
             ((ones, u), (-ones, u), (s_low, u120), (s_low, u240))]
 
 
-def _pp_box(x1, R1, s1, x2, R2, s2):
-    """The four deepest corners."""
+def _pp_box_candidates(x1, R1, s1, x2, R2, s2):
+    """The eight corners against the plane: (dist (B, G, 8),
+    pos (B, G, 8, 3))."""
     n = R1[..., :, 2]
     corners = vmath.constant(_CORNER_SIGNS, x1)
     pw = x2[..., None, :] + torch.einsum("bgij,cj,gj->bgci", R2, corners, s2)
     cdist = torch.einsum("bgi,bgci->bgc", n, pw - x1[..., None, :])
+    return cdist, pw - 0.5 * cdist[..., None] * n[..., None, :]
+
+
+def _pp_box(x1, R1, s1, x2, R2, s2):
+    """The four deepest corners."""
+    cdist, cpos = _pp_box_candidates(x1, R1, s1, x2, R2, s2)
     top = _deepest(cdist, 4)
     tdist = torch.gather(cdist, -1, top)
-    tpos = torch.gather(pw, -2, top[..., None].expand(top.shape + (3,)))
-    tpos = tpos - 0.5 * tdist[..., None] * n[..., None, :]
+    tpos = torch.gather(cpos, -2, top[..., None].expand(top.shape + (3,)))
     return [(tdist[..., k], tpos[..., k, :], _plane_frame(R1))
             for k in range(4)]
 
@@ -343,7 +361,21 @@ def pair_expansion(m: Model) -> np.ndarray:
 def collide(m: Model, d: Data) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor, np.ndarray]:
     """All candidate contact points of the batch: (dist (B, ncon),
-    pos (B, ncon, 3), frame (B, ncon, 3, 3), con_pair numpy (ncon,))."""
+    pos (B, ncon, 3), frame (B, ncon, 3, 3), con_pair numpy (ncon,)).
+    Kernel E (ops/collision.py) on CUDA tensors, which it takes in float32
+    alone; the plain version on CPU tensors."""
+    if not m.ncon_max or d.geom_xpos.device.type == "cpu":
+        return collide_plain(m, d)
+    if not d.geom_xpos.is_cuda:
+        raise ValueError(f"no narrowphase for device {d.geom_xpos.device}")
+    from vnl_tpu_torch.ops import collision as collision_ops
+    return collision_ops.collide(m, d.geom_xpos.contiguous(),
+                                 d.geom_xmat.contiguous())
+
+
+def collide_plain(m: Model, d: Data) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor, np.ndarray]:
+    """``collide`` in plain PyTorch, on any device."""
     B = d.qpos.shape[0]
     dtype = d.qpos.dtype
     if m.ncon_max == 0:

@@ -48,7 +48,8 @@ KERNEL_GROUPS = tuple(
     for group, names in (("kernel A (position)", "position(_warp)?"),
                          ("kernel B (cg)", "cg(_wide)?"),
                          ("kernel C (sweep)", "sweep(_tile|_warp)?"),
-                         ("kernel D (constraints)", "constraints")))
+                         ("kernel D (constraints)", "constraints"),
+                         ("kernel E (collision)", "collision")))
 
 
 def _group(name: str) -> Optional[str]:
@@ -67,7 +68,7 @@ def _device_events(prof):
 
 def device_groups(prof):
     """Device time (us) and launches of a torch.profiler trace by kernel
-    group: the hand-written kernels A, B, C and D, copies, and the
+    group: the hand-written kernels A to E, copies, and the
     rest."""
     groups = collections.Counter()
     launches = collections.Counter()
@@ -156,7 +157,8 @@ def profile_rollout(cuda_graphs: bool, batch: int = BATCH,
 # the fused paths: their launches go through ctypes and leave no
 # operation in the trace to find a range around
 KERNEL_PARTS = {"kernel A (position)": "position", "kernel B (cg)": "solve",
-                "kernel D (constraints)": "constraints"}
+                "kernel D (constraints)": "constraints",
+                "kernel E (collision)": "collision"}
 
 
 def device_by_part(prof):
