@@ -245,6 +245,14 @@ import time
 import numpy as np
 import torch
 
+from vnl_tpu_torch.ops import (KERNELS, build, launch_counts,
+                               reset_launch_counts, sweep)
+from vnl_tpu_torch.ops import cg as cg_ops
+from vnl_tpu_torch.ops import collision as col_ops
+from vnl_tpu_torch.ops import constraints as con_ops
+from vnl_tpu_torch.ops import position as pos
+from vnl_tpu_torch.physics import collision, forward, inertia, kinematics
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024
 OTHER_BATCHES = (1000, 3)   # also checked against the plain versions
@@ -281,7 +289,6 @@ def spill_bytes(name: str, kernel: str = "") -> int:
     """Largest spill reported by ptxas for the kernels of one source whose
     mangled name contains ``kernel`` (all of them by default)."""
     import re
-    from vnl_tpu_torch.ops import build
     found = re.findall(r"Function properties for (\S+)\n[^\n]*?(\d+) bytes "
                        r"spill stores, (\d+) bytes spill loads",
                        build.BUILD_LOG.get(name, ""))
@@ -298,7 +305,6 @@ def mangled(route: str) -> str:
 
 def check_position(m, qpos, ker, plain):
     """Kernel A's outputs against the plain version's; returns the errors."""
-    from vnl_tpu_torch.ops import position as pos
     errs = {}
     nplain = len(pos.OUTPUT_NAMES) - 2
     for name, k, p in zip(pos.OUTPUT_NAMES[:nplain], ker, plain):
@@ -328,8 +334,6 @@ def phase_kernel_a(m, gen, name="position", other_batches=OTHER_BATCHES):
     """Kernel A against its plain version on BATCH random states of ``m``
     (and ``other_batches``); returns (kernels row, errors)."""
     from vnl_tpu_torch.kernel_bench import QUEUED, random_states, time_ms
-    from vnl_tpu_torch.ops import position as pos
-    from vnl_tpu_torch.physics import inertia
     qpos = random_states(m, BATCH, gen)
     ker = pos._launch(m, qpos)
     plain = pos.position_plain(m, qpos)
@@ -390,7 +394,6 @@ def phase_kernel_b(m, gen, name="cg", other_batches=OTHER_BATCHES,
     row, errors)."""
     from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg, check_cg_reruns,
                                             contact_states, time_ms)
-    from vnl_tpu_torch.ops import cg as cg_ops
     (args, st), active = contact_states(m, BATCH, gen, press)
     ker = cg_ops._launch(st, args)
     torch.cuda.synchronize()
@@ -448,7 +451,6 @@ def phase_kernel_d(m, gen, name="constraints", press=0.005):
     timed at BATCH and 128 envs.  Returns (kernels row, errors)."""
     from vnl_tpu_torch.kernel_bench import (QUEUED, constraint_states,
                                             time_ms)
-    from vnl_tpu_torch.ops import constraints as con_ops
     errs, timed = {}, {}
     for edges in (False, True):
         args = (m,) + constraint_states(m, BATCH, gen, press, edges)
@@ -478,7 +480,7 @@ def phase_kernel_d(m, gen, name="constraints", press=0.005):
                           groups=len(t["grp_start"]) - 1),
                source="vnl_tpu_torch/csrc/constraints.cu",
                replaces="vnl_tpu_torch/physics/constraint.py "
-                        "make_constraints + solver.py cg_inputs",
+                        "make_constraints + ops/cg.py cg_inputs",
                max_abs_err=max(v for v in errs.values()
                                if not isinstance(v, bool)),
                ms=timed[BATCH][0], plain_ms=timed[BATCH][1],
@@ -503,7 +505,6 @@ def collision_bytes(m, batch):
     rotation of each geom a candidate pair names, writes each contact
     slot's distance, point and frame (the pair tables, one copy for every
     env, stay in L2)."""
-    from vnl_tpu_torch.physics import collision
     pair = collision.pair_expansion(m)
     geoms = np.unique(np.concatenate([np.asarray(m.pair_geom1)[pair],
                                       np.asarray(m.pair_geom2)[pair]]))
@@ -521,8 +522,6 @@ def phase_kernel_e(device, gen):
     BATCH and 128 envs, beside the plain version on the card.  Returns
     (kernels rows, errors)."""
     from vnl_tpu_torch import compat, kernel_bench as kb, mjcf
-    from vnl_tpu_torch.ops import collision as col_ops
-    from vnl_tpu_torch.physics import collision, forward, kinematics
     xml = dict(boxes=kb.BOX_SCENE, round=kb.ROUND_SCENE,
                ellipsoid=kb.ELLIPSOID_SCENE, humanoid=compat.DM_HUMANOID_XML)
 
@@ -547,9 +546,9 @@ def phase_kernel_e(device, gen):
         m = model(name, device)
         d = data(m, name, BATCH)
         gx, gm = d.geom_xpos.contiguous(), d.geom_xmat.contiguous()
-        ker = col_ops.collide(m, gx, gm)
+        ker = col_ops._launch(m, gx, gm)
         same_bits(f"collision {name}", ker[:3],
-                  col_ops.collide(m, gx, gm)[:3])
+                  col_ops._launch(m, gx, gm)[:3])
         errs[name] = dict(kb.check_collision(
             ker, model(name, "cpu"), d.replace(
                 qpos=d.qpos.cpu(), geom_xpos=gx.cpu(), geom_xmat=gm.cpu()),
@@ -561,9 +560,9 @@ def phase_kernel_e(device, gen):
             db = data(m, name, batch)
             x, r = db.geom_xpos.contiguous(), db.geom_xmat.contiguous()
             timed[batch] = (
-                kb.time_ms(lambda: col_ops.collide(m, x, r),
+                kb.time_ms(lambda: col_ops._launch(m, x, r),
                            queued=kb.QUEUED),
-                kb.time_ms(lambda: collision.collide_plain(m, db), reps=5))
+                kb.time_ms(lambda: collision.collide(m, db), reps=5))
         res = col_ops.resources(m)
         took = res[res["takes"]]
         t = col_ops.kernel_tables(m)
@@ -575,7 +574,7 @@ def phase_kernel_e(device, gen):
                        instantiation="collision_kernel<%s>" % (
                            "true" if t["boxes"] else "false")),
             source="vnl_tpu_torch/csrc/collision.cu",
-            replaces="vnl_tpu_torch/physics/collision.py collide_plain",
+            replaces="vnl_tpu_torch/physics/collision.py collide",
             max_abs_err=max(errs[name][k] for k in ("dist", "pos", "frame")),
             ms=timed[BATCH][0], plain_ms=timed[BATCH][1],
             ms_128=timed[128][0], plain_ms_128=timed[128][1],
@@ -608,7 +607,6 @@ def phase_kernel_b_widest(m, gen):
     (kernels row, errors).  No path of the repo launches this route."""
     from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg, contact_states,
                                             padded_contacts, time_ms)
-    from vnl_tpu_torch.ops import cg as cg_ops
     (args, st), active = contact_states(m, BATCH, gen)
     args, st = padded_contacts(args, st, WIDEST_PAD)
     name = cg_ops.kernel_name(st)
@@ -656,7 +654,6 @@ def unroll(env, make_policy, graphed, again=False):
     the reset and the first unroll, state, rollout, reset_s, unroll_s,
     again_s, graph: the capture's report, and with ``again`` profiled:
     ``profiled_launches`` of one more replay)."""
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     from vnl_tpu_torch.training import ActorStepGraph, generate_unroll
     from vnl_tpu_torch.utils import graphs
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -689,10 +686,7 @@ def unroll(env, make_policy, graphed, again=False):
 
 # the launch counters of kernels A to E, and the group by which
 # profile_rollout.device_groups names each kernel's routes
-COUNTED_GROUPS = (("position", "kernel A (position)"),
-                  ("cg", "kernel B (cg)"), ("sweep", "kernel C (sweep)"),
-                  ("constraints", "kernel D (constraints)"),
-                  ("collision", "kernel E (collision)"))
+COUNTED_GROUPS = tuple((k.name, k.label) for k in KERNELS.values())
 
 
 def profiled_launches(run) -> dict:
@@ -768,7 +762,6 @@ def check_sweep(name, a, errs):
     """Kernel C on ``a`` against the plain version at rtol 5e-3 and atol
     1e-4 of the inverse's scale, |A X - I| < 5e-3, bitwise symmetric, the
     same bits from two launches; records the errors in ``errs``."""
-    from vnl_tpu_torch.ops import sweep
     plain = sweep.inv_spd_sweep_plain(a)
     scale = float(plain.abs().max())
     eye = torch.eye(a.shape[-1], device="cuda")
@@ -798,7 +791,6 @@ def sweep_route_report(n: int, kind: str) -> dict:
     (ptxas's report where this run built it); raises if the route is not
     ``kind`` or, on the register and one-warp routes, if it spills or
     keeps local memory."""
-    from vnl_tpu_torch.ops import sweep
     route, res = sweep.route(n), sweep.resources(n)
     spill = spill_bytes("sweep", sweep_kernel_name(route))
     if route.kind != kind or (kind != "shared" and
@@ -811,7 +803,6 @@ def sweep_route_report(n: int, kind: str) -> dict:
 def phase_kernel_c(m, gen):
     from vnl_tpu_torch.kernel_bench import (QUEUED, random_states, time_ms,
                                             twin_pair)
-    from vnl_tpu_torch.ops import sweep
     route, res = sweep.route(m.nv), sweep.resources(m.nv)
     # the main path's kernel: a register tile with no spills and no local
     # memory at all
@@ -891,7 +882,6 @@ def eval_both_ways(net, fused: bool, graph_reports) -> dict:
 def phase_training(fused: bool, steps: int):
     """train(...) at the bench's widths; returns (launch counts, report)."""
     from vnl_tpu_torch import bench, models
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     made = {}
 
     def factory(*a, **kw):
@@ -1056,7 +1046,6 @@ def run_cli(tag, extra, device, expect_from=0, env_args=TWIN_ARGS):
     and B launched at least once per physics substep."""
     import glob
     from vnl_tpu_torch import train as cli
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     log_dir = os.path.join(CLI_DIR, tag, "logs")
     args = env_args + [f"train.checkpoint_dir={CLI_DIR}/{tag}/ck",
                        f"train.log_dir={log_dir}"] + CLI_SETTINGS + extra
@@ -1312,7 +1301,6 @@ def phase_ant(device, trees=None):
     from vnl_tpu_torch import bench, compat, models
     from vnl_tpu_torch.envs import AntTracking
     from vnl_tpu_torch.kernel_bench import QUEUED, newton_hessians, time_ms
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts, sweep
     from vnl_tpu_torch.training import train
     t_phase = time.perf_counter()
     rep = {}
@@ -1417,7 +1405,6 @@ def phase_render(device):
     """Phase 10; returns its report."""
     from vnl_tpu_torch import compat
     from vnl_tpu_torch.kernel_bench import random_states
-    from vnl_tpu_torch.physics import forward, kinematics
     from vnl_tpu_torch.render import make_egocentric_camera
     from vnl_tpu_torch.render.software import overlay_frames
     t_phase = time.perf_counter()
@@ -1515,7 +1502,6 @@ def phase_data_parallel(device):
     import torch.distributed as dist
     from vnl_tpu_torch import bench, models
     from vnl_tpu_torch.envs import make_twin_env
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     from vnl_tpu_torch.parallel import mesh
     from vnl_tpu_torch.training import gradients, train
     t_phase = time.perf_counter()
@@ -1697,7 +1683,6 @@ def phase_checkpoint_tools(device):
     from vnl_tpu_torch import compat, eval_checkpoint, render_checkpoint
     from vnl_tpu_torch.envs import RodentMultiClipTracking
     from vnl_tpu_torch.examples import train_multiclip
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     from vnl_tpu_torch.render.software import overlay_frames
     from vnl_tpu_torch.utils import apply_overrides, load_config
     t_phase = time.perf_counter()
@@ -1869,7 +1854,6 @@ def phase_stepping(device):
     """Phase 13: the stepping bench at BATCH envs; returns (launch counts,
     its line)."""
     from vnl_tpu_torch import bench
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     torch.cuda.synchronize()
     reset_launch_counts()
     out = bench.run_stepping(device, batch=BATCH, n_steps=UNROLL,
@@ -1901,7 +1885,6 @@ def phase_numerics(device, out_dir=""):
     from vnl_tpu_torch import check_numerics
     from vnl_tpu_torch.kernel_bench import (QUEUED, random_states, time_ms,
                                             twin_pair)
-    from vnl_tpu_torch.ops import sweep
     t_phase = time.perf_counter()
     rep = check_numerics.run(device, batch=BATCH)
     if out_dir:
@@ -2024,7 +2007,6 @@ def train_pair(device):
     Returns (the graphed run's launch counts, report)."""
     from vnl_tpu_torch import bench, models
     from vnl_tpu_torch.envs import make_twin_env
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     from vnl_tpu_torch.training import train
     from vnl_tpu_torch.utils import graphs
     kw = dict(bench.TRAIN_KW, episode_length=EVAL_EPISODE)
@@ -2102,7 +2084,6 @@ def graph_pair(tag, run):
     results equal bit for bit, the launch counts equal, every graph made
     once (a later call replays it) and a profiled replay of each backs
     the counts.  Returns (the graphed run's launch counts, report)."""
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     from vnl_tpu_torch.utils import graphs
     runs = {}
     for graphed in (False, True):
@@ -2331,7 +2312,6 @@ def phase_cliplib_humanoid(device):
     replaying one graph.  Returns (launch counts of the probe, of the
     humanoid run, report)."""
     from vnl_tpu_torch import bench, bench_cliplib, models, run_humanoid
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     t_phase = time.perf_counter()
     rep = {}
     torch.cuda.synchronize()
@@ -2420,8 +2400,6 @@ def main() -> int:
                     "the port on a CUDA device")
     sys.path.insert(0, ROOT)
     from vnl_tpu_torch import compat
-    from vnl_tpu_torch.ops import build
-    from vnl_tpu_torch.physics import forward
 
     p = argparse.ArgumentParser()
     p.add_argument("--out", default="",

@@ -19,7 +19,6 @@ from vnl_tpu_torch.physics import collision as tcol
 from vnl_tpu_torch.physics import constraint as tcon
 from vnl_tpu_torch.physics import forward as tfwd
 from vnl_tpu_torch.physics import inertia as tinertia
-from vnl_tpu_torch.physics import solver as tsol
 
 import torch_parity as tp
 
@@ -77,8 +76,8 @@ def test_plain_matches_reference_twin(twin):
     jm, _, efc, args, _, _ = twin
     assert efc.ncon > 0 and efc.nlimit == 67
     want = _reference(jm, efc, args, 6, 6)
-    got = tcg.cg(*map(tp.to_torch, args),
-                 statics=_statics(jm, efc, 6, 6))      # CPU -> plain
+    got = tcg.cg_plain(*map(tp.to_torch, args),
+                       statics=_statics(jm, efc, 6, 6))
     for name, g, w in zip(OUT, got, want):
         tp.assert_close(g, w, 1e-3, 1e-3, name)
 
@@ -121,7 +120,7 @@ def test_constraint_inputs_match(twin):
     _, qfrc_act, _ = tact.actuation(tm, td)
     qacc_smooth = tinertia.solve_m(td, td.qfrc_passive - td.qfrc_bias
                                    + qfrc_act)
-    got, st = tsol.cg_inputs(tm, td, tefc, qacc_smooth, 6)
+    got, st = tcg.cg_inputs(tm, td, tefc, qacc_smooth, 6)
     names = ("qM", "qMinv", "qacc_smooth", "cdof", "g36", "lim_sign",
              "lim_aref", "lim_D", "con_mu", "con_aref", "con_D")
     for name, g, w in zip(names, got, args):

@@ -1,6 +1,6 @@
 """Kernel E (ops/collision.py, csrc/collision.cu), the narrowphase of every
 candidate pair in one launch: its static tables on the CPU, and the
-kernel against the plain narrowphase (collision.collide_plain) on a CUDA
+kernel against the plain narrowphase (collision.collide) on a CUDA
 device (marked ``cuda``; skipped without a card, since a CUDA kernel has
 no CPU mode).  Imports neither JAX nor vnl_tpu, so it also runs where
 only the port is installed:
@@ -80,7 +80,7 @@ def test_cpu_collide_is_the_plain_version():
         m.qpos0.numpy(), m.jnt_range.numpy(), False, 3, 5))
     d = kinematics.kinematics(m, forward.make_data(m, 5, qpos=q))
     before = launch_counts["collision"]
-    got, want = collision.collide(m, d), collision.collide_plain(m, d)
+    got, want = col_ops.collide(m, d), collision.collide(m, d)
     assert launch_counts["collision"] == before
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
@@ -111,21 +111,21 @@ def _geoms(m, name, batch, seed):
 
 
 def _check(m, name, d):
-    """Kernel E against collide_plain on the CPU on ``d``'s geoms
+    """Kernel E against the plain collide on the CPU on ``d``'s geoms
     (kernel_bench.check_collision): one launch counted, the same bits from
     a second launch.  Returns the plain version's contacts."""
     gx, gm = d.geom_xpos.contiguous(), d.geom_xmat.contiguous()
     before = launch_counts["collision"]
-    got = col_ops.collide(m, gx, gm)
+    got = col_ops._launch(m, gx, gm)
     assert launch_counts["collision"] == before + 1
-    again = col_ops.collide(m, gx, gm)
+    again = col_ops._launch(m, gx, gm)
     for k, field in enumerate(("dist", "pos", "frame")):
         assert got[k].is_contiguous() and got[k].dtype == torch.float32
         assert torch.equal(got[k], again[k]), field
     mc = _model(name, "cpu")
     dc = d.replace(qpos=d.qpos.cpu(), geom_xpos=gx.cpu(), geom_xmat=gm.cpu())
     kernel_bench.check_collision(got, mc, dc, flat_env=name == "boxes")
-    return collision.collide_plain(mc, dc)
+    return collision.collide(mc, dc)
 
 
 @pytest.mark.cuda
@@ -157,16 +157,16 @@ def test_collision_kernel_rejects_bad_inputs(cuda):
     d = _geoms(m, "humanoid", 4, seed=1)
     gx, gm = d.geom_xpos.contiguous(), d.geom_xmat.contiguous()
     with pytest.raises(ValueError, match="geom_xpos"):
-        col_ops.collide(m, gx.double(), gm)
+        col_ops._launch(m, gx.double(), gm)
     with pytest.raises(ValueError, match="geom_xmat"):
-        col_ops.collide(m, gx, gm.double())
+        col_ops._launch(m, gx, gm.double())
     with pytest.raises(ValueError, match="geom_xmat"):
-        col_ops.collide(m, gx, gm.transpose(-1, -2))
+        col_ops._launch(m, gx, gm.transpose(-1, -2))
     with pytest.raises(ValueError, match="geom_xpos"):
-        col_ops.collide(m, gx.cpu(), gm)
+        col_ops._launch(m, gx.cpu(), gm)
     with pytest.raises(ValueError, match="geom_xpos"):
-        collision.collide(m, d.replace(geom_xpos=gx.double(),
-                                       geom_xmat=gm.double()))
+        col_ops.collide(m, d.replace(geom_xpos=gx.double(),
+                                     geom_xmat=gm.double()))
 
 
 @pytest.mark.cuda

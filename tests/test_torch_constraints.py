@@ -15,8 +15,9 @@ import torch
 from vnl_tpu_torch import compat, kernel_bench, mjcf
 from vnl_tpu_torch import math as vmath
 from vnl_tpu_torch.envs.humanoid import load_humanoid_model
+from vnl_tpu_torch.ops import cg as cg_ops
 from vnl_tpu_torch.ops import constraints as con_ops
-from vnl_tpu_torch.physics import collision, constraint, forward, solver
+from vnl_tpu_torch.physics import collision, constraint, forward
 from vnl_tpu_torch.physics.model import ConeType, DisableBit, SolverType
 
 B = 4
@@ -113,7 +114,7 @@ def _kernel_d(t, d, dist, cpos, frame):
 def _plain(m, d, dist, cpos, frame, pair):
     efc = constraint.make_constraints(m, d, dist, cpos, frame, pair,
                                       materialize_jc=False)
-    return efc, solver.kernel_b_system(m, efc)
+    return efc, cg_ops.kernel_b_system(m, efc)
 
 
 @pytest.mark.parametrize("name", ALL)
@@ -126,7 +127,7 @@ def test_tables_reproduce_make_constraints(name):
     name, m, d, dist, cpos, frame, pair = _states(name)
     t = con_ops.kernel_tables(m, pair)
     efc, packed = _plain(m, d, dist, cpos, frame, pair)
-    want = (solver.g36(packed), packed.lim_sign, packed.lim_aref,
+    want = (cg_ops.g36(packed), packed.lim_sign, packed.lim_aref,
             packed.lim_D, packed.lim_pos, efc.con_aref, efc.con_D,
             efc.con_pos)
     active = efc.con_pos < 0
@@ -186,7 +187,7 @@ def test_tables_take_the_direct_solref(direct):
     efc, packed = _plain(m, d, dist, cpos, frame, pair)
     for out, g, w in zip(con_ops.OUTPUT_NAMES,
                          _kernel_d(t, d, dist, cpos, frame),
-                         (solver.g36(packed), packed.lim_sign,
+                         (cg_ops.g36(packed), packed.lim_sign,
                           packed.lim_aref, packed.lim_D, packed.lim_pos,
                           efc.con_aref, efc.con_D, efc.con_pos)):
         scale = float(w.abs().max())
@@ -196,13 +197,13 @@ def test_tables_take_the_direct_solref(direct):
 
 @pytest.mark.parametrize("name", KERNEL_D)
 def test_cpu_route_is_make_constraints_then_cg_inputs(name):
-    """On CPU tensors the wrapper returns make_constraints -> cg_inputs'
-    arrays bit for bit (a contact-only model's inert limit row
+    """On CPU tensors the plain route returns make_constraints ->
+    cg_inputs' arrays bit for bit (a contact-only model's inert limit row
     included)."""
     name, m, d, dist, cpos, frame, pair = _states(name)
-    got = con_ops.constraints(m, d, dist, cpos, frame, pair)
+    got = con_ops.constraints_plain(m, d, dist, cpos, frame, pair)
     efc, packed = _plain(m, d, dist, cpos, frame, pair)
-    args, _ = solver.cg_inputs(m, d, efc, torch.zeros(B, m.nv),
+    args, _ = cg_ops.cg_inputs(m, d, efc, torch.zeros(B, m.nv),
                                max(m.opt.iterations, 1))
     want = (args[4], args[5], args[6], args[7], packed.lim_pos, args[9],
             args[10], efc.con_pos)
@@ -298,10 +299,10 @@ def test_wrapper_rejects_bad_inputs(name):
         launch(con_dist=dist[:1])
     meta = d.replace(**{f.name: getattr(d, f.name).to("meta")
                         for f in dataclasses.fields(d)})
-    with pytest.raises(ValueError, match="model on cpu"):
+    with pytest.raises(ValueError, match="on cpu, got"):
         launch(meta, con_dist=dist.to("meta"), con_pos=cpos.to("meta"),
                con_frame=frame.to("meta"))
-    with pytest.raises(ValueError, match="no constraint assembly"):
+    with pytest.raises(ValueError, match="on cpu, got"):
         con_ops.constraints(m, meta, dist.to("meta"), cpos.to("meta"),
                             frame.to("meta"), pair)
     _, ant, ad, *contacts = _states("ant")      # Newton: no kernel D

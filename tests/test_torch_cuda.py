@@ -20,7 +20,7 @@ from vnl_tpu_torch.ops import constraints as con_ops
 from vnl_tpu_torch.ops import launch_counts
 from vnl_tpu_torch.ops import position as pos_ops
 from vnl_tpu_torch.ops import sweep as sweep_ops
-from vnl_tpu_torch.physics import actuation, forward, inertia, solver
+from vnl_tpu_torch.physics import actuation, forward, inertia
 
 B = 64
 
@@ -98,7 +98,7 @@ def _cg_args(m, qpos, qvel):
     _, qfrc_act, _ = actuation.actuation(m, d)
     qacc_smooth = inertia.solve_m(d, d.qfrc_passive - d.qfrc_bias + qfrc_act)
     active = int((d.contact_dist < 0).sum())
-    return solver.cg_inputs(m, d, efc, qacc_smooth,
+    return cg_ops.cg_inputs(m, d, efc, qacc_smooth,
                             max(m.opt.iterations, 1)), active
 
 
@@ -109,7 +109,7 @@ def _check_cg(args, st, large_batch=False):
     holds an env that misses the float32 plain result (at most 0.5% of the
     batch) to the plain version run in float64, at the same tolerance."""
     before = launch_counts["cg"]
-    got = cg_ops.cg(*args, statics=st)
+    got = cg_ops._launch(st, args)
     assert launch_counts["cg"] == before + 1
     if large_batch:
         kernel_bench.check_cg(st, args, got)
@@ -118,7 +118,7 @@ def _check_cg(args, st, large_batch=False):
         for name, g, w in zip(("qacc", "qfrc_constraint", "con_f"), got,
                               want):
             _close(g, w, 1e-3, 1e-3, name)
-    again = cg_ops.cg(*args, statics=st)
+    again = cg_ops._launch(st, args)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
 
@@ -198,7 +198,7 @@ def _padded(model, pad, batch=B):
     statics, the twin's own solve)."""
     (args, st), _ = _cg_args(model, *_states(model, press=0.005,
                                              batch=batch))
-    narrow = cg_ops.cg(*args, statics=st)
+    narrow = cg_ops._launch(st, args)
     return (*kernel_bench.padded_contacts(args, st, pad), narrow)
 
 
@@ -210,7 +210,7 @@ def test_cg_kernel_wide_system(model):
     args, wide, narrow = _padded(model, 3)
     assert cg_ops.kernel_name(wide) == "cg_wide_kernel<1,1>"
     _check_cg(args, wide)
-    got = cg_ops.cg(*args, statics=wide)
+    got = cg_ops._launch(wide, args)
     assert bool((got[2][:, wide.ncon - 3:] == 0).all())
     _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
 
@@ -220,9 +220,9 @@ def test_cg_kernel_wide_route_reruns(model):
     """The wide route just above 160 rows (171) on 1000 envs, held by
     kernel_bench.check_cg_reruns as the humanoid's 729 rows are."""
     args, wide, _ = _padded(model, 3, batch=1000)
-    got = cg_ops.cg(*args, statics=wide)
+    got = cg_ops._launch(wide, args)
     kernel_bench.check_cg_reruns(wide, args, got)
-    for g, a in zip(got, cg_ops.cg(*args, statics=wide)):
+    for g, a in zip(got, cg_ops._launch(wide, args)):
         assert torch.equal(g, a)
 
 
@@ -235,7 +235,7 @@ def test_cg_kernel_widest_system(model):
     assert cg_ops.kernel_name(wide) == "cg_kernel<0>"
     _check_cg(args, wide)
     before = launch_counts["cg"], launch_counts["cg_widest"]
-    got = cg_ops.cg(*args, statics=wide)
+    got = cg_ops._launch(wide, args)
     assert (launch_counts["cg"], launch_counts["cg_widest"]) == \
         (before[0] + 1, before[1] + 1)
     _close(got[0], narrow[0], 1e-3, 1e-3, "qacc against the narrow system")
@@ -488,10 +488,10 @@ def test_cg_kernel_humanoid(humanoid):
     assert cg_ops.kernel_name(st) == "cg_wide_kernel<3,1>" and active > 0
     assert st.nlimit + 4 * st.ncon == 21 + 4 * 177
     before = launch_counts["cg"]
-    got = cg_ops.cg(*args, statics=st)
+    got = cg_ops._launch(st, args)
     assert launch_counts["cg"] == before + 1
     kernel_bench.check_cg_reruns(st, args, got)
-    for g, a in zip(got, cg_ops.cg(*args, statics=st)):
+    for g, a in zip(got, cg_ops._launch(st, args)):
         assert torch.equal(g, a)
 
 

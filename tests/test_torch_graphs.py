@@ -50,7 +50,7 @@ from vnl_tpu_torch import bench, compat, profile_rollout
 from vnl_tpu_torch.envs import (make_twin_env, step_in_place,
                                 wrap_for_training)
 from vnl_tpu_torch.models import make_inference_fn
-from vnl_tpu_torch.ops import ReplayCounts, launch_counts
+from vnl_tpu_torch.ops import KERNELS, ReplayCounts, launch_counts
 from vnl_tpu_torch.training import (ActorStepGraph, Transition, actor_step,
                                     acting, compute_ppo_intention_loss,
                                     generate_unroll, gradients, train)
@@ -296,10 +296,7 @@ CSRC = os.path.join(os.path.dirname(compat.__file__), "csrc")
 
 
 @pytest.mark.parametrize("source,group", [
-    ("position.cu", "kernel A (position)"), ("cg.cu", "kernel B (cg)"),
-    ("sweep.cu", "kernel C (sweep)"),
-    ("constraints.cu", "kernel D (constraints)"),
-    ("collision.cu", "kernel E (collision)")])
+    (k.source, k.label) for k in KERNELS.values()])
 def test_kernel_groups_name_every_route_of_their_source(source, group):
     with open(os.path.join(CSRC, source)) as f:
         names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)"

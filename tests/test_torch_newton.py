@@ -157,7 +157,8 @@ def test_elliptic_cg_skips_kernel_b(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("kernel B called for an elliptic solve")
 
-    monkeypatch.setattr(cg_ops, "cg", refuse)
+    monkeypatch.setattr(cg_ops, "_launch", refuse)
+    monkeypatch.setattr(cg_ops, "cg_plain", refuse)
     path, overrides = CASES["ant_cg_elliptic"]
     jm = tp.jax_scene(path, **overrides)
     tm = tp.torch_model(jm)

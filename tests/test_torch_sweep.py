@@ -187,7 +187,7 @@ def test_sweep_plain_stacked_pair(layout):
     leading dims are flattened and restored."""
     a = _spd_batch(np.random.default_rng(1), 6, 17)
     pair = np.stack([a, 2.0 * a], axis=0 if layout == "pair_first" else 1)
-    got = sweep.inv_spd_fused(torch.as_tensor(pair)).numpy()
+    got = sweep.inv_spd_sweep(torch.as_tensor(pair)).numpy()
     assert got.shape == pair.shape
     want = np.linalg.inv(a.astype(np.float64))
     scale = np.abs(want).max()

@@ -3,8 +3,9 @@
 The JAX package ``vnl_tpu`` stays the reference; this package imports
 nothing of it.  Ported so far: the batched physics with its position
 stage (kernel A, or unfused on kernel C, the SPD sweep inverse), the
-constraint assembly (kernel D) and the CG contact solve (kernel B) as
-hand-written Hopper kernels (``csrc/``), the
+narrowphase (kernel E), the constraint assembly (kernel D) and the CG
+contact solve (kernel B) as hand-written Hopper kernels (``csrc/``; each
+kernel's one entry is ``ops.KERNELS``, its wrapper ``ops/<name>.py``), the
 ``RodentTracking`` and ``RodentMultiClipTracking`` envs and the training
 wrappers, the intention policy and value network, the intention-PPO
 learner (``training.train``) with its evaluator, full-state checkpoints

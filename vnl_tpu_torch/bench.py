@@ -54,6 +54,8 @@ from typing import Optional
 
 import torch
 
+from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+
 NUM_ENVS = 1024
 TRAIN_KW = dict(
     episode_length=150, num_envs=NUM_ENVS, num_eval_envs=128,
@@ -93,7 +95,6 @@ def run(fused_position: bool, steps: int, device="cuda", env=None,
     them and the reports of the run's graph captures (``cuda_graphs``
     among ``overrides``: train's; by default graphs on a CUDA device)."""
     from vnl_tpu_torch.envs import make_twin_env
-    from vnl_tpu_torch.ops import launch_counts
     from vnl_tpu_torch.training import train
     from vnl_tpu_torch.utils import graphs
 
@@ -154,7 +155,6 @@ def run_stepping(device="cuda", batch: int = NUM_ENVS, n_steps: int = 20,
     the env-steps/s of each sample, the launches of kernels A, B and C in
     each sample, the capture's report and the final ``state``."""
     from vnl_tpu_torch.envs import StateGraph, make_twin_env
-    from vnl_tpu_torch.ops import launch_counts
     from vnl_tpu_torch.parallel import mesh
     cuda = torch.device(device).type == "cuda"
     if cuda_graphs is None:
@@ -229,7 +229,6 @@ def main(argv=None) -> int:
         print("vnl_tpu_torch.bench: no CUDA device", file=sys.stderr)
         return 1
     from vnl_tpu_torch import parallel
-    from vnl_tpu_torch.ops import reset_launch_counts
     from vnl_tpu_torch.parallel import mesh
     if "LOCAL_RANK" in os.environ:               # torch.distributed.run
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))

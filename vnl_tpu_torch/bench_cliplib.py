@@ -39,6 +39,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vnl_tpu_torch.ops import build, launch_counts
+from vnl_tpu_torch.physics.forward import pin_fp32
 from vnl_tpu_torch.train import CONFIGS
 
 TWIN_CONFIG = os.path.join(CONFIGS, "rodent_twin_config.yaml")
@@ -102,7 +104,6 @@ def run(num_envs: int = NUM_ENVS, sizes: Sequence[int] = SIZES,
     from vnl_tpu_torch.envs.rodent import (RodentMultiClipTracking,
                                            _split_compile_args,
                                            compile_rodent)
-    from vnl_tpu_torch.ops import launch_counts
     from vnl_tpu_torch.utils import graphs, load_config
     cfg = cfg if cfg is not None else load_config(TWIN_CONFIG)
     compile_kw, _ = _split_compile_args(dict(cfg["env"]["env_args"],
@@ -176,8 +177,6 @@ def main(argv=None) -> int:
     sizes = ([int(s) for s in argv[1].split(",")] if len(argv) > 1
              else list(SIZES))
     from vnl_tpu_torch.bench import gpu_name_and_power_limit
-    from vnl_tpu_torch.ops import build
-    from vnl_tpu_torch.physics.forward import pin_fp32
     build.build_all()
     pin_fp32()
     rows = run(num_envs, sizes)

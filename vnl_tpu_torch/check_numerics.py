@@ -58,6 +58,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
+from vnl_tpu_torch.physics import forward as fwd
+
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "assets", "goldens")
 ROLLOUTS = ("twin_actions", "twin_keeper", "humanoid_actions", "ant_actions")
@@ -242,7 +245,6 @@ def check_forward(scene: str, env, n: Optional[int] = None,
     """forward() on the first ``n`` states of ``forward_<scene>`` with the
     env's position stage, against the golden's qacc at FORWARD_RTOL of its
     scale; ``keep`` adds the port's qacc and qfrc_constraint."""
-    from vnl_tpu_torch.physics import forward as fwd
     g = load_golden(f"forward_{scene}")
     m, dev = env.sys, env.sys.device
     n = n or g["qpos"].shape[0]
@@ -269,7 +271,6 @@ def check_forward(scene: str, env, n: Optional[int] = None,
 def _counted(device, fn):
     """fn() with the launch counts taken from zero; returns (result,
     counts)."""
-    from vnl_tpu_torch.ops import launch_counts, reset_launch_counts
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     reset_launch_counts()
@@ -286,12 +287,11 @@ def run(device="cuda", batch: int = 1024) -> dict:
     tables.  Returns the report; ``report["ok"]`` is False if any part
     failed its tolerances or, on a CUDA device, missed a kernel launch
     (``failures``)."""
-    from vnl_tpu_torch.physics.forward import pin_fp32
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("check_numerics: no CUDA device (pass "
                            "--device cpu to run the plain versions)")
-    pin_fp32()
+    fwd.pin_fp32()
     t0 = time.perf_counter()
     report = {"device": str(device), "batch": batch, "rollouts": {},
               "forward": {}, "parts": [], "failures": []}

@@ -28,6 +28,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vnl_tpu_torch.ops import cg as cg_ops
+from vnl_tpu_torch.ops import constraints as constraint_ops
+from vnl_tpu_torch.ops import position as position_ops
+from vnl_tpu_torch.ops import sweep as sweep_ops
+from vnl_tpu_torch.physics import (actuation, collision, constraint, forward,
+                                   inertia, solver)
+from vnl_tpu_torch.physics.model import GeomType, SolverType
+
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, queued: int = 0) -> float:
     """Median device time of one call of ``fn`` (CUDA events).
@@ -81,8 +89,6 @@ def _solve_inputs(m, batch, gen, press):
     its plain version on the plain assembly's systems, which kernel D
     (tested on its own) gives to within a rounding that moves with the
     batch (cuBLAS picks the order of the plain J qvel sums by shape)."""
-    from vnl_tpu_torch.physics import (actuation, collision, constraint,
-                                       forward, inertia)
     qpos = random_states(m, batch, gen)
     qpos[:, 2] -= press
     qvel = 0.5 * torch.randn(batch, m.nv, generator=gen, device=m.device)
@@ -101,9 +107,8 @@ def contact_states(m, batch, gen, press: float = 0.005):
     """Kernel-A states pressed into the floor (the root lowered by
     ``press``), through collision and constraints, up to the CG solve's
     inputs: ((args, statics), number of active contacts)."""
-    from vnl_tpu_torch.physics import solver
     d, efc, qacc_smooth, active = _solve_inputs(m, batch, gen, press)
-    return solver.cg_inputs(m, d, efc, qacc_smooth,
+    return cg_ops.cg_inputs(m, d, efc, qacc_smooth,
                             max(m.opt.iterations, 1)), active
 
 
@@ -122,8 +127,6 @@ def constraint_states(m, batch, gen, press: float = 0.005,
     of their ranges past either end (limit rows on both sides and
     violated), and contact c of env b at the distance EDGE_STEPS[(b + c) %
     10] widths from its margin - gap."""
-    from vnl_tpu_torch.ops import constraints
-    from vnl_tpu_torch.physics import collision, forward
     dev = m.device
     qpos = random_states(m, batch, gen)
     if edges:
@@ -137,8 +140,8 @@ def constraint_states(m, batch, gen, press: float = 0.005,
     pair = collision.pair_expansion(m)
     dist = d.contact_dist
     if edges:
-        t = constraints.kernel_tables(m, pair)["con_flt"]
-        field = constraints.CONTACT_FIELDS.index
+        t = constraint_ops.kernel_tables(m, pair)["con_flt"]
+        field = constraint_ops.CONTACT_FIELDS.index
         thresh, width = (torch.as_tensor(t[field(n)], device=dev)
                          for n in ("thresh", "width"))
         steps = torch.tensor(EDGE_STEPS, device=dev)
@@ -154,8 +157,6 @@ def padded_contacts(args, st, pad: int):
     so that they stay inactive and the solve is the original one; more
     than 1,024 contact rows take kernel B's widest route, cg_kernel<0>,
     which no scene of the repo reaches.  Returns (args, statics)."""
-    import numpy as np
-    from vnl_tpu_torch.ops import cg as cg_ops
     reps = -(-pad // st.ncon)
     wide = cg_ops.CgStatics.make(
         st.nv, st.lim_dof, *[np.concatenate([c] + [c] * reps)[:st.ncon + pad]
@@ -176,7 +177,6 @@ def newton_hessians(m, batch, gen, press: float = 0.005):
     Newton iteration inverts (kernel C's input on the Newton path) at
     kernel-A states pressed into the floor, and the number of active
     contacts.  ``m`` must compile for Newton (a dense contact Jacobian)."""
-    from vnl_tpu_torch.physics import solver
     d, efc, x, active = _solve_inputs(m, batch, gen, press)
     lim_jx, con_fx = efc.jx(x)
     H = solver.newton_hessian(d, efc, lim_jx - efc.lim_aref,
@@ -193,7 +193,6 @@ def cg_spread(st, args, ker, tol: float = 1e-3, base=None) -> dict:
     float64 results beyond it of each other).  Raises on a non-finite
     output.  ``base``: the plain (float32, float64) results, if already
     computed."""
-    from vnl_tpu_torch.ops import cg as cg_ops
     plain, ref = base or (cg_ops.cg_plain(*args, statics=st),
                           cg_ops.cg_plain(*[a.double() for a in args],
                                           statics=st))
@@ -274,7 +273,6 @@ def check_cg_reruns(st, args, ker, tol: float = 1e-3) -> dict:
     worst re-run does, plus 0.5% of the batch (check_cg's share); raises
     AssertionError otherwise (or on a non-finite output).  Returns the
     kernel's and the re-runs' counts and errors."""
-    from vnl_tpu_torch.ops import cg as cg_ops
     base = (cg_ops.cg_plain(*args, statics=st),
             cg_ops.cg_plain(*[a.double() for a in args], statics=st))
     spread = cg_spread(st, args, ker, tol, base)
@@ -304,8 +302,7 @@ def twin_pair(m, qpos):
     """Kernel C's input on the unfused path: the stacked pair
     [qM, qM + h diag(B)] (2, B, nv, nv) at the states ``qpos``, with qM
     from kernel A."""
-    from vnl_tpu_torch.ops import position as pos
-    qM = pos._launch(m, qpos)[11]
+    qM = position_ops._launch(m, qpos)[11]
     hB = torch.diag(m.opt.timestep * m.dof_damping)
     return torch.stack([qM, qM + hB]).contiguous()
 
@@ -392,7 +389,6 @@ def collision_states(qpos0, jnt_range, humanoid: bool, seed: int,
 def kept_slots(geom_type, pair_geom1, pair_geom2, con_pair):
     """Per plane-box or box-box candidate pair, the slots of its kept
     (deepest) points; and the mask of every other slot."""
-    from vnl_tpu_torch.physics.model import GeomType
     gt = np.asarray(geom_type)
     con_pair = np.asarray(con_pair)
     kept = gt[np.asarray(pair_geom2)[con_pair]] == GeomType.BOX
@@ -421,8 +417,6 @@ def box_candidates(m, d):
     """{candidate pair: (dist (B, n), pos (B, n, 3))}: every candidate point
     of each plane-box (8 corners) and box-box pair (25) by the plain
     version, from which it keeps the deepest (4 and 8)."""
-    from vnl_tpu_torch.physics import collision
-    from vnl_tpu_torch.physics.model import GeomType
     out = {}
     for a, b, _, idx in collision._groups(m):
         if b != GeomType.BOX or a == GeomType.SPHERE:
@@ -462,14 +456,13 @@ def assert_kept(tdist, tpos, wdist, cand_dist, cand_pos, name, atol=2e-5):
 
 def check_collision(got, m, d, flat_env: bool = False) -> dict:
     """Kernel E's contacts ``got`` (collide's four outputs, on any device)
-    against collision.collide_plain of the CPU model ``m`` on the CPU Data
+    against collision.collide (the plain version) of the CPU model ``m`` on the CPU Data
     ``d``: distances, points and frames at atol 2e-5 (the narrowphase
     tests' tolerance); plane-box and box-box pairs by ``assert_kept``,
     their frames slot for slot; with ``flat_env``, env 0 (lying exactly
     flat: exact ties) slot for slot.  Raises AssertionError; returns the
     largest error of each output."""
-    from vnl_tpu_torch.physics import collision
-    want = collision.collide_plain(m, d)
+    want = collision.collide(m, d)
     got = [x.cpu() for x in got[:3]] + [got[3]]
     np.testing.assert_array_equal(got[3], want[3])
     groups, direct = kept_slots(m.geom_type, m.pair_geom1, m.pair_geom2,
@@ -524,21 +517,18 @@ def stage_split(m, batch: int = 1024, seed: int = 0, press: float = 0.005,
     and their resources, for the model ``m`` on its CUDA device.  Kernel
     B's contact states have the root lowered by ``press`` (the humanoid
     needs 0.3 to touch the floor); ``kernels`` names the ones to time."""
-    from vnl_tpu_torch.ops import cg as cg_ops
-    from vnl_tpu_torch.ops import position as pos
-    from vnl_tpu_torch.ops import sweep
     gen = torch.Generator(device=m.device).manual_seed(seed)
     qpos = random_states(m, batch, gen)
     out = dict(batch=batch)
     if "position" in kernels:
         out["position_ms"] = {
-            name: time_ms(lambda: pos._launch(m, qpos, skip=skip),
+            name: time_ms(lambda: position_ops._launch(m, qpos, skip=skip),
                           queued=QUEUED)
             for name, skip in (("whole", 0), ("no_sweeps", 1),
                                ("no_subtree_sums", 2), ("no_tree_walk", 4),
                                ("no_qM_assembly", 8), ("none_of_them", 15))}
-        out["position_resources"] = pos.resources(m)
-        out["position_route"] = pos.route_name(m)
+        out["position_resources"] = position_ops.resources(m)
+        out["position_route"] = position_ops.route_name(m)
     if "cg" in kernels:
         (args, st), _ = contact_states(m, batch, gen, press)
 
@@ -560,7 +550,6 @@ def stage_split(m, batch: int = 1024, seed: int = 0, press: float = 0.005,
                                nv=st.nv, ncon=st.ncon, nlimit=st.nlimit,
                                route=cg_ops.kernel_name(st))
     if "sweep" in kernels:
-        from vnl_tpu_torch.physics.model import SolverType
         if m.opt.solver == int(SolverType.NEWTON):
             pair, _ = newton_hessians(m, batch, gen, press)
         else:
@@ -569,10 +558,10 @@ def stage_split(m, batch: int = 1024, seed: int = 0, press: float = 0.005,
         out["empty_launch_ms"] = time_ms(lambda: one.add_(1.0),
                                          queued=QUEUED)
         out["sweep_ms"] = {
-            name: time_ms(lambda: sweep._launch(pair, skip=skip),
+            name: time_ms(lambda: sweep_ops._launch(pair, skip=skip),
                           queued=QUEUED)
             for name, skip in (("whole", 0), ("no_pivots", 1),
                                ("load_store_only", 3))}
-        out["sweep_resources"] = sweep.resources(m.nv)
+        out["sweep_resources"] = sweep_ops.resources(m.nv)
         out["sweep_shape"] = list(pair.shape)
     return out

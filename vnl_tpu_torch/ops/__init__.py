@@ -1,12 +1,11 @@
-"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (ops/position.py: kernel A, the fused position stage; ops/cg.py:
-kernel B, the CG contact solve; ops/sweep.py: kernel C, the SPD sweep
-inverse of the unfused position stage; ops/constraints.py: kernel D, the
-limit and contact constraint system of a substep as kernel B takes it;
-ops/collision.py: kernel E, the narrowphase of every pair of a substep).
+"""Hand-written CUDA kernels of the port, each in ``ops/<name>.py`` beside
+its plain PyTorch version, with its one entry in ``KERNELS``: its source,
+launch counter, label, device-op pattern, control-step part and nvcc
+flags, from which the build (ops/build.py, which also holds what the
+wrappers share), the profiling tools and chip_smoke.py take them.
 
-``launch_counts`` counts kernel launches by name; a wrapper adds one where
-it launches its kernel and nowhere else, so a run can show that the main
+``launch_counts`` counts kernel launches by name; ``build.launch`` adds
+one for each launch and nothing else does, so a run can show that the main
 path went through the kernels.  Kernel B's launches on its widest route,
 ``cg_kernel<0>``, are also counted on their own, as "cg_widest".
 
@@ -17,7 +16,47 @@ of the eager run."""
 
 import collections
 import contextlib
-from typing import MutableMapping
+import re
+from typing import MutableMapping, NamedTuple, Optional, Tuple
+
+
+class Kernel(NamedTuple):
+    """A hand-written kernel.  ``name``: its source csrc/<name>.cu, its
+    library and its key in ``launch_counts``; ``letter``: kernel A to E
+    in the docs and the errors; ``routes``: the pattern of
+    its ``__global__`` functions' names before ``_kernel``, by which a
+    trace's device ops are grouped; ``part``: the part of the control
+    step (utils/profiler.py ``part``) that launches it on the fused paths
+    (kernel C has none); ``flags``: nvcc flags of its own."""
+
+    name: str
+    letter: str
+    routes: str
+    part: Optional[str]
+    flags: Tuple[str, ...] = ()
+
+    @property
+    def label(self) -> str:
+        return f"kernel {self.letter} ({self.name})"
+
+    @property
+    def source(self) -> str:
+        return f"{self.name}.cu"
+
+    @property
+    def pattern(self) -> re.Pattern:
+        """Its routes' names, demangled or not."""
+        return re.compile(rf"(?<![a-z_]){self.routes}_kernel(?![a-z_])")
+
+
+KERNELS = {k.name: k for k in (
+    Kernel("position", "A", "position(_warp)?", "position"),
+    Kernel("cg", "B", "cg(_wide)?", "solve"),
+    Kernel("sweep", "C", "sweep(_tile|_warp)?", None),
+    Kernel("constraints", "D", "constraints", "constraints"),
+    # kernel E rounds each operation on its own, as the plain version's
+    # separate PyTorch operations do
+    Kernel("collision", "E", "collision", "collision", ("-fmad=false",)))}
 
 launch_counts = collections.Counter()
 

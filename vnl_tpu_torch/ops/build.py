@@ -1,4 +1,5 @@
-"""Builds the hand-written CUDA kernels at first use and loads them.
+"""Builds the hand-written CUDA kernels at first use, loads and launches
+them.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a`` (Hopper), all sources at once
@@ -7,6 +8,10 @@ their source and of the headers beside it (``csrc/*.cuh``), so an
 unchanged source is not rebuilt.  The build directory
 is ``build/kernels`` beside the package (override: VNL_TPU_TORCH_BUILD).
 Nothing here runs at import time: the CPU tests import every module.
+
+The wrappers share ``tables`` (a kernel's device tables, made once per
+owner and device), ``check_inputs`` and ``launch`` (typed once a library,
+on the current stream, checked and counted in ``launch_counts``).
 """
 
 from __future__ import annotations
@@ -17,17 +22,21 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Callable, Dict, Sequence
+
+import numpy as np
+import torch
+
+from vnl_tpu_torch.ops import KERNELS, launch_counts
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-# flags of single sources: kernel E rounds each operation on its own, as
-# the plain version's separate PyTorch operations do
-FLAGS = {"collision": ("-fmad=false",)}
+FLAGS = {k.name: k.flags for k in KERNELS.values() if k.flags}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[str, Callable] = {}    # <name>_launch, typed
 BUILD_LOG: Dict[str, str] = {}   # ptxas resource report per kernel source
 
 
@@ -120,3 +129,64 @@ def resources(name: str, *args) -> dict:
     check(fn(*args, out), f"{name}_resources")
     return dict(regs=out[0], local_bytes=out[1], smem_bytes=out[2],
                 blocks_per_sm=out[3])
+
+
+
+def tables(owner, name: str, device, make: Callable, *key):
+    """``make(device)`` -> (value, tensors the value points into), made
+    once per ``owner`` (a Model, or kernel B's CgStatics), kernel
+    ``name``, device and ``key`` and held in ``owner.cache``; returns the
+    value."""
+    k = (name, str(device)) + key
+    if k not in owner.cache:
+        owner.cache[k] = make(torch.device(device))
+    return owner.cache[k][0]
+
+
+def on_device(arrays: dict, device, dtype=None) -> dict:
+    """numpy arrays or tensors as contiguous tensors on ``device``, cast
+    to the numpy ``dtype`` where one is given."""
+    out = {}
+    for n, a in arrays.items():
+        a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+        out[n] = torch.as_tensor(np.ascontiguousarray(
+            a if dtype is None else a.astype(dtype)), device=device)
+    return out
+
+
+def check_inputs(name: str, device, lead: Sequence[int], *inputs) -> None:
+    """Raises ValueError unless each (input name, tensor, trailing shape)
+    of ``inputs`` is a contiguous float32 tensor of shape lead + trailing
+    on ``device``."""
+    for what, a, shape in inputs:
+        want = tuple(lead) + tuple(shape)
+        if (a.dtype != torch.float32 or tuple(a.shape) != want
+                or not a.is_contiguous() or a.device != device):
+            raise ValueError(
+                f"kernel {KERNELS[name].letter}: {what} must be contiguous "
+                f"float32 {want} on {device}, got {a.dtype} "
+                f"{tuple(a.shape)} on {a.device}"
+                f"{'' if a.is_contiguous() else ', strided'}")
+
+
+def launch(name: str, argtypes, device, *args, skip=None) -> None:
+    """Calls ``<name>_launch`` of csrc/<name>.cu with ``args`` (of the
+    ctypes ``argtypes``), the current stream of ``device`` and, where
+    given, the profiling ``skip`` bits; raises on a CUDA error and counts
+    the launch."""
+    kernel = KERNELS[name]
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{kernel.label} runs on a CUDA device, got "
+                         f"{device}")
+    if name not in _FUNCTIONS:
+        fn = getattr(load(name), f"{name}_launch")
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p] + (
+            [] if skip is None else [ctypes.c_int])
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[name] = fn
+    stream = torch.cuda.current_stream(device).cuda_stream
+    tail = (stream,) if skip is None else (stream, skip)
+    with torch.cuda.device(device):
+        check(_FUNCTIONS[name](*args, *tail), kernel.label)
+    launch_counts[name] += 1

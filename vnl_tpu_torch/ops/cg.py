@@ -1,15 +1,18 @@
 """Kernel B: the whole CG contact solve (counterpart of
 vnl_tpu/ops/pallas_cg.py).
 
-``cg(...)`` takes the flat per-env signature of the JAX package's
-make_cg_fused, batched on a leading dim:
+``solve(m, d, efc, qacc_smooth)`` is forward's constraint solve: where the
+system is kernel B's (the CG solver on a factored system with contacts)
+it packs it by ``cg_inputs`` into the flat per-env signature of the JAX
+package's make_cg_fused, batched on a leading dim:
   qM, qMinv (B, nv, nv), qacc_smooth (B, nv), cdof (B, nv, 6),
   g36 (B, 36, ncon) [G2 | G1 rows, f-major], lim_sign/aref/D (B, nlimit),
   con_mu (B, ncon, 2), con_aref/con_D (B, ncon, 4)
-  -> qacc (B, nv), qfrc_constraint (B, nv), con_f (B, ncon, 4).
-On CUDA tensors it launches csrc/cg.cu; on CPU tensors it runs
-``cg_plain``, the port of vnl_tpu/physics/solver.py:215 _make_cg_reference
-(the same solve, recomputing M(x - a) each iteration).
+  -> qacc (B, nv), qfrc_constraint (B, nv), con_f (B, ncon, 4),
+and launches csrc/cg.cu on CUDA tensors or runs ``cg_plain`` on CPU
+tensors, the port of vnl_tpu/physics/solver.py:215 _make_cg_reference
+(the same solve, recomputing M(x - a) each iteration); every other system
+goes to physics/solver.py solve.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from vnl_tpu_torch.ops import build, launch_counts
 from vnl_tpu_torch.physics import constraint, solver
+from vnl_tpu_torch.physics.model import Data, Model, SolverType
 
 THREADS = 256       # kThreads of the source: one block per env
 _STATICS: dict = {}
@@ -83,6 +87,44 @@ def cg_plain(qM, qMinv, qacc_smooth, cdof, g36, lim_sign, lim_aref, lim_D,
                                         statics.iters, statics.ls_iters)
     _, _, lim_f, con_f = solver._forces(efc, lim_jx, con_fx)
     return x, efc.jt_f(lim_f, con_f), con_f
+
+
+def kernel_b_system(m: Model, efc: constraint.EfcSystem
+                    ) -> constraint.EfcSystem:
+    """The system as kernel B takes it: a contact-only model gets one inert
+    limit row (sign 0, D 0), which keeps the kernel's shapes non-empty
+    (solver.py:253-263 in the JAX package)."""
+    if efc.nlimit:
+        return efc
+    z = efc.con_cdof.new_zeros(efc.con_cdof.shape[0], 1)
+    return efc.replace(lim_dof=np.zeros(1, np.int32),
+                       lim_onehot=efc.con_cdof.new_zeros(1, m.nv),
+                       lim_sign=z, lim_aref=z, lim_D=z, lim_pos=z, nlimit=1)
+
+
+def g36(efc: constraint.EfcSystem) -> torch.Tensor:
+    """Kernel B's (B, 36, ncon) moment arms [G2 | G1 rows, f-major]: kernel
+    D's own where it built the system, else packed from G1 and G2."""
+    if efc.g36 is not None:
+        return efc.g36
+    return torch.cat([
+        efc.con_G2.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon),
+        efc.con_G1.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon)],
+        1).contiguous()
+
+
+def cg_inputs(m: Model, d: Data, efc: constraint.EfcSystem, qacc_smooth,
+              n_iter: int):
+    """The flat arguments and static structure of the CG solve (the
+    signature of ``cg_plain`` and of kernel B)."""
+    efc = kernel_b_system(m, efc)
+    args = (d.qM, d.qMinv, qacc_smooth.contiguous(), efc.con_cdof,
+            g36(efc), efc.lim_sign, efc.lim_aref, efc.lim_D,
+            efc.con_mu.contiguous(), efc.con_aref, efc.con_D)
+    statics = CgStatics.make(m.nv, efc.lim_dof, efc.con_chain1,
+                             efc.con_chain2, n_iter,
+                             max(m.opt.ls_iterations, 1))
+    return args, statics
 
 
 # ---------------------------------------------------------------------------
@@ -210,19 +252,16 @@ class CgOut(ctypes.Structure):
 
 def _device_model(st: CgStatics, device: torch.device):
     """(CgModel, CgWide) with the tables on ``device``, made once."""
-    key = str(device)
-    if key not in st.cache:
+    def make(device):
         t = kernel_tables(st)
-        held = {n: torch.as_tensor(np.asarray(t[n], np.int32), device=device)
-                for n in dict.fromkeys(_TABLES + _WIDE_TABLES)}
+        held = build.on_device({n: t[n] for n in _TABLES + _WIDE_TABLES},
+                                device, np.int32)
         sizes = [getattr(st, n) for n in _SIZES]
-        st.cache[key] = (
-            CgModel(*sizes, *[held[n].data_ptr() for n in _TABLES]),
-            CgWide(*sizes, len(t["grp_start"]) - 1,
-                   len(t["chunk_start"]) - 1,
-                   *[held[n].data_ptr() for n in _WIDE_TABLES]),
-            held)
-    return st.cache[key][:2]
+        return (CgModel(*sizes, *[held[n].data_ptr() for n in _TABLES]),
+                CgWide(*sizes, len(t["grp_start"]) - 1,
+                       len(t["chunk_start"]) - 1,
+                       *[held[n].data_ptr() for n in _WIDE_TABLES])), held
+    return build.tables(st, "cg", device, make)
 
 
 WIDE_SLOTS = (1, 2, 3, 4)   # contact-row slots a thread of the wide route
@@ -252,6 +291,9 @@ def resources(st: CgStatics, device="cuda") -> dict:
                 threads=THREADS, route=kernel_name(st))
 
 
+_ARGTYPES = (CgModel, CgWide, CgIn, CgOut, ctypes.c_int)
+
+
 def _launch(st: CgStatics, args, skip: int = 0):
     """Launches kernel B.  ``skip`` is for profiling only (the outputs are
     then wrong): bit 0 empties the chain lists of J v (the groups' on the
@@ -262,45 +304,37 @@ def _launch(st: CgStatics, args, skip: int = 0):
     shapes = [(nv, nv), (nv, nv), (nv,), (nv, 6), (36, nc), (nl,), (nl,),
               (nl,), (nc, 2), (nc, 4), (nc, 4)]
     dev = args[0].device
-    for name, a, s in zip(_IN, args, shapes):
-        if (a.dtype != torch.float32 or tuple(a.shape) != (B,) + s
-                or not a.is_contiguous() or a.device != dev):
-            raise ValueError(f"kernel B: {name} must be contiguous float32 "
-                             f"{(B,) + s} on {dev}, got {a.dtype} "
-                             f"{tuple(a.shape)} on {a.device}")
+    build.check_inputs("cg", dev, (B,), *zip(_IN, args, shapes))
     if nl == 0 or nc == 0:
         raise ValueError("kernel B needs at least one limit row and one "
                          "contact")
     if nv > 32 * (THREADS // 32 - 1):
         raise ValueError(f"kernel B gives every dof a thread of its "
                          f"{THREADS} and keeps a warp free: nv = {nv}")
-    lib = build.load("cg")
-    fn = lib.cg_launch
-    fn.argtypes = [CgModel, CgWide, CgIn, CgOut, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
     qacc = torch.empty(B, nv, device=dev)
     qfrc = torch.empty(B, nv, device=dev)
     con_f = torch.empty(B, nc, 4, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*_device_model(st, dev), CgIn(*[a.data_ptr() for a in args]),
-             CgOut(qacc.data_ptr(), qfrc.data_ptr(), con_f.data_ptr()), B,
-             stream, skip)
-    build.check(err, "kernel B (cg)")
-    launch_counts["cg"] += 1
+    build.launch("cg", _ARGTYPES, dev, *_device_model(st, dev),
+                  CgIn(*[a.data_ptr() for a in args]),
+                  CgOut(qacc.data_ptr(), qfrc.data_ptr(), con_f.data_ptr()),
+                  B, skip=skip)
     if kernel_name(st) == "cg_kernel<0>":   # the widest route, by itself
         launch_counts["cg_widest"] += 1
     return qacc, qfrc, con_f
 
 
-def cg(qM, qMinv, qacc_smooth, cdof, g36, lim_sign, lim_aref, lim_D,
-       con_mu, con_aref, con_D, *, statics: CgStatics):
-    """The CG solve of a batch: kernel B on CUDA tensors, the plain version
-    on CPU tensors."""
-    args = (qM, qMinv, qacc_smooth, cdof, g36, lim_sign, lim_aref, lim_D,
-            con_mu, con_aref, con_D)
-    if qM.is_cuda:
+def solve(m: Model, d: Data, efc: constraint.EfcSystem,
+          qacc_smooth: torch.Tensor):
+    """forward's constraint solve: (qacc, qfrc_constraint, contact forces).
+    Kernel B's whole solve where the system is its (CG on a factored
+    system with contacts), on CUDA tensors, and its plain version on CPU
+    tensors; solver.solve for every other system (Newton, the dense
+    Jacobian of the elliptic cone, no contacts)."""
+    if (m.opt.solver == int(SolverType.NEWTON) or efc.con_Jc is not None
+            or not efc.ncon):
+        return solver.solve(m, d, efc, qacc_smooth)
+    args, statics = cg_inputs(m, d, efc, qacc_smooth,
+                              max(m.opt.iterations, 1))
+    if args[0].is_cuda:
         return _launch(statics, args)
-    if qM.device.type != "cpu":
-        raise ValueError(f"no CG solve for device {qM.device}")
     return cg_plain(*args, statics=statics)

@@ -1,13 +1,12 @@
 """Kernel E: the narrowphase of every candidate pair of a substep in one
 launch.
 
-``collide(m, geom_xpos, geom_xmat)`` maps the geoms' positions (B, ngeom, 3)
-and rotations (B, ngeom, 3, 3) to what physics/collision.py collide
-returns: dist (B, ncon), pos (B, ncon, 3), frame (B, ncon, 3, 3), float32
-and contiguous, and con_pair, in the plain version's slot order.  It
-launches csrc/collision.cu and takes CUDA float32 tensors only;
-physics/collision.py collide sends CUDA tensors here and runs its plain
-version, ``collide_plain``, on the CPU.
+``collide(m, d)`` is forward's narrowphase.  On a CUDA device it launches
+csrc/collision.cu on the geoms' positions (B, ngeom, 3) and rotations
+(B, ngeom, 3, 3), in float32, and returns what physics/collision.py
+collide, the plain version, returns everywhere else: dist (B, ncon), pos
+(B, ncon, 3), frame (B, ncon, 3, 3), float32 and contiguous, and
+con_pair, in the plain version's slot order.
 """
 
 from __future__ import annotations
@@ -17,9 +16,9 @@ import ctypes
 import numpy as np
 import torch
 
-from vnl_tpu_torch.ops import build, launch_counts
+from vnl_tpu_torch.ops import build
 from vnl_tpu_torch.physics import collision
-from vnl_tpu_torch.physics.model import GeomType, Model
+from vnl_tpu_torch.physics.model import Data, GeomType, Model
 
 THREADS = 128       # kThreads of the source: one thread a (env, pair)
 # the pair types in the source's PairType order: collision._ORDER's
@@ -80,16 +79,14 @@ class ColOut(ctypes.Structure):
 def _device_model(m: Model, device: torch.device):
     """(ColModel struct, tables) with the tables on ``device``, made once
     per model."""
-    key = ("collision_kernel", str(device))
-    if key not in m.cache:
+    def make(device):
         t = kernel_tables(m)
-        held = {n: torch.as_tensor(np.ascontiguousarray(t[n]), device=device)
-                for n in ("pair_int", "pair_size")}
-        st = ColModel(npair=len(t["pair"]), ngeom=m.ngeom,
-                      ncon=len(t["con_pair"]),
-                      **{n: held[n].data_ptr() for n in held})
-        m.cache[key] = (st, t, held)
-    return m.cache[key][:2]
+        held = build.on_device({n: t[n] for n in ("pair_int", "pair_size")},
+                                device)
+        return (ColModel(npair=len(t["pair"]), ngeom=m.ngeom,
+                         ncon=len(t["con_pair"]),
+                         **{n: held[n].data_ptr() for n in held}), t), held
+    return build.tables(m, "collision", device, make)
 
 
 def resources(m: Model) -> dict:
@@ -103,33 +100,31 @@ def resources(m: Model) -> dict:
                 threads=THREADS)
 
 
-def collide(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor):
+_ARGTYPES = (ColModel, ColIn, ColOut, ctypes.c_int, ctypes.c_int)
+
+
+def _launch(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor):
     """Kernel E on a batch: (dist (B, ncon), pos (B, ncon, 3), frame
     (B, ncon, 3, 3), con_pair numpy (ncon,))."""
     B, dev = geom_xpos.shape[0], geom_xpos.device
-    for name, a, s in (("geom_xpos", geom_xpos, (m.ngeom, 3)),
-                       ("geom_xmat", geom_xmat, (m.ngeom, 3, 3))):
-        if (a.dtype != torch.float32 or tuple(a.shape) != (B,) + s
-                or not a.is_contiguous() or not a.is_cuda
-                or a.device != dev):
-            raise ValueError(f"kernel E: {name} must be contiguous float32 "
-                             f"{(B,) + s} on a CUDA device ({dev}), got "
-                             f"{a.dtype} {tuple(a.shape)} on {a.device}"
-                             f"{'' if a.is_contiguous() else ', strided'}")
-    if dev != m.device:
-        raise ValueError(f"kernel E: geoms on {dev}, model on {m.device}")
+    build.check_inputs("collision", m.device, (B,),
+                 ("geom_xpos", geom_xpos, (m.ngeom, 3)),
+                 ("geom_xmat", geom_xmat, (m.ngeom, 3, 3)))
     st, t = _device_model(m, dev)
     nc = st.ncon
     dist = torch.empty(B, nc, device=dev)
     pos = torch.empty(B, nc, 3, device=dev)
     frame = torch.empty(B, nc, 3, 3, device=dev)
-    fn = build.load("collision").collision_launch
-    fn.argtypes = [ColModel, ColIn, ColOut, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(fn(st, ColIn(geom_xpos.data_ptr(), geom_xmat.data_ptr()),
-                   ColOut(dist.data_ptr(), pos.data_ptr(), frame.data_ptr()),
-                   B, int(t["boxes"]), stream), "kernel E (collision)")
-    launch_counts["collision"] += 1
+    build.launch("collision", _ARGTYPES, dev, st,
+                  ColIn(geom_xpos.data_ptr(), geom_xmat.data_ptr()),
+                  ColOut(dist.data_ptr(), pos.data_ptr(), frame.data_ptr()),
+                  B, int(t["boxes"]))
     return dist, pos, frame, t["con_pair"]
+
+
+def collide(m: Model, d: Data):
+    """The narrowphase of a batch: kernel E on CUDA tensors (where the
+    model has candidate pairs), the plain version elsewhere."""
+    if m.ncon_max and d.geom_xpos.is_cuda:
+        return _launch(m, d.geom_xpos.contiguous(), d.geom_xmat.contiguous())
+    return collision.collide(m, d)

@@ -1,16 +1,16 @@
 """Kernel D: the constraint system of a substep, joint limits and pyramidal
 contacts, as kernel B takes it.
 
-``constraints(m, d, con_dist, con_pos, con_frame, con_pair)`` maps the
-state (qpos, qvel, subtree_com and cdof of ``d``) and the contacts of
-``collision.collide`` to kernel B's constraint inputs
+``constraints(m, d, con_dist, con_pos, con_frame, con_pair)`` launches
+csrc/constraints.cu on the state (qpos, qvel, subtree_com and cdof of
+``d``) and the contacts of ``collision.collide``, which it maps to kernel
+B's constraint inputs
   g36 (B, 36, ncon) [G2 | G1 rows, f-major],
   lim_sign, lim_aref, lim_D, lim_pos (B, nlimit; a model without limits
     gets kernel B's inert row, sign 0 and D 0),
   con_aref, con_D (B, ncon, 4), con_pos (B, ncon).
-On CUDA tensors it launches csrc/constraints.cu; on CPU tensors it runs
-``constraints_plain``: physics/constraint.py make_constraints and the
-packing of physics/solver.py cg_inputs.
+``constraints_plain`` is the same in plain PyTorch: physics/constraint.py
+make_constraints and the packing of ops/cg.py cg_inputs.
 
 ``system(...)`` is the constraint stage of forward's path: kernel D's
 system where kernel B solves (a CUDA device, the CG solver, the pyramidal
@@ -25,9 +25,9 @@ import ctypes
 import numpy as np
 import torch
 
-from vnl_tpu_torch.ops import build, launch_counts
+from vnl_tpu_torch.ops import build
 from vnl_tpu_torch.ops import cg as cg_ops
-from vnl_tpu_torch.physics import constraint, solver
+from vnl_tpu_torch.physics import constraint
 from vnl_tpu_torch.physics.model import (ConeType, Data, DisableBit, Model,
                                          SolverType)
 
@@ -42,22 +42,21 @@ OUTPUT_NAMES = ("g36", "lim_sign", "lim_aref", "lim_D", "lim_pos",
                 "con_aref", "con_D", "con_pos")
 
 
-def takes_kernel(m: Model, qpos: torch.Tensor) -> bool:
-    """Whether kernel D builds the system: where kernel B solves it."""
-    flags = m.opt.disableflags
-    return (qpos.is_cuda and m.opt.solver == int(SolverType.CG)
-            and m.opt.cone == int(ConeType.PYRAMIDAL) and m.ncon_max > 0
-            and not flags & (DisableBit.CONSTRAINT | DisableBit.CONTACT))
-
-
-def _check_model(m: Model) -> None:
+def _refusal(m: Model) -> str:
+    """Why kernel D cannot build this model's system; "" where it can."""
     if m.opt.solver != int(SolverType.CG) or \
             m.opt.cone != int(ConeType.PYRAMIDAL):
-        raise ValueError("kernel D builds the system of the CG solver with "
-                         "pyramidal contacts")
+        return "kernel D builds the system of the CG solver with pyramidal "\
+            "contacts"
     if m.ncon_max == 0 or \
             m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.CONTACT):
-        raise ValueError("kernel D needs at least one contact")
+        return "kernel D needs at least one contact"
+    return ""
+
+
+def takes_kernel(m: Model, qpos: torch.Tensor) -> bool:
+    """Whether kernel D builds the system: where kernel B solves it."""
+    return qpos.is_cuda and not _refusal(m)
 
 
 def _solimp(solimp: torch.Tensor) -> dict:
@@ -163,31 +162,28 @@ class ConOut(ctypes.Structure):
 def _device_model(m: Model, con_pair: np.ndarray, device: torch.device):
     """(ConModel struct, tables) with the tables on ``device``, made once
     per model."""
-    key = ("constraints_kernel", str(device), np.asarray(con_pair).tobytes())
-    if key not in m.cache:
+    def make(device):
         t = kernel_tables(m, con_pair)
-        held = {n: torch.as_tensor(np.ascontiguousarray(t[n]),
-                                   device=device) for n in _TABLES}
-        st = ConModel(nq=m.nq, nv=m.nv, nbody=m.nbody, ncon=len(con_pair),
-                      nlimit=len(t["lim_dof"]),
-                      ngrp=len(t["grp_start"]) - 1,
-                      ngdof=len(t["grp_dof"]),
-                      **{n: held[n].data_ptr() for n in _TABLES})
-        m.cache[key] = (st, t, held)
-    return m.cache[key][:2]
+        held = build.on_device({n: t[n] for n in _TABLES}, device)
+        return (ConModel(nq=m.nq, nv=m.nv, nbody=m.nbody, ncon=len(con_pair),
+                         nlimit=len(t["lim_dof"]),
+                         ngrp=len(t["grp_start"]) - 1,
+                         ngdof=len(t["grp_dof"]),
+                         **{n: held[n].data_ptr() for n in _TABLES}), t), held
+    return build.tables(m, "constraints", device, make,
+                         np.asarray(con_pair).tobytes())
 
 
 def con_mu(m: Model, con_pair: np.ndarray, batch: int,
            device: torch.device) -> torch.Tensor:
     """The contacts' (mu1, mu2) as kernel B reads them, (batch, ncon, 2)
     contiguous, made once per model and batch."""
-    key = ("constraints_mu", str(device), batch,
-           np.asarray(con_pair).tobytes())
-    if key not in m.cache:
+    def make(device):
         mu = torch.as_tensor(_device_model(m, con_pair, device)[1]["mu"],
                              device=device)
-        m.cache[key] = mu.expand(batch, -1, -1).contiguous()
-    return m.cache[key]
+        return mu.expand(batch, -1, -1).contiguous(), None
+    return build.tables(m, "constraints_mu", device, make, batch,
+                         np.asarray(con_pair).tobytes())
 
 
 def resources(m: Model, con_pair: np.ndarray) -> dict:
@@ -202,56 +198,45 @@ def constraints_plain(m: Model, d: Data, con_dist, con_pos, con_frame,
                       con_pair):
     """make_constraints, then cg_inputs' packing: kernel B's constraint
     inputs in plain PyTorch."""
-    _check_model(m)
-    efc = solver.kernel_b_system(m, constraint.make_constraints(
+    if why := _refusal(m):
+        raise ValueError(why)
+    efc = cg_ops.kernel_b_system(m, constraint.make_constraints(
         m, d, con_dist, con_pos, con_frame, con_pair, materialize_jc=False))
-    return (solver.g36(efc), efc.lim_sign, efc.lim_aref, efc.lim_D,
+    return (cg_ops.g36(efc), efc.lim_sign, efc.lim_aref, efc.lim_D,
             efc.lim_pos, efc.con_aref, efc.con_D, efc.con_pos)
+
+
+_ARGTYPES = (ConModel, ConIn, ConOut, ctypes.c_int)
 
 
 def _launch(m: Model, qpos, qvel, subtree_com, cdof, con_dist, con_pos,
             con_frame, con_pair):
     """Launches kernel D."""
-    _check_model(m)
+    if why := _refusal(m):
+        raise ValueError(why)
     B, nc, nv = qpos.shape[0], len(con_pair), m.nv
-    dev = qpos.device
     ins = (("qpos", qpos, (m.nq,)), ("qvel", qvel, (nv,)),
            ("subtree_com", subtree_com, (m.nbody, 3)),
            ("cdof", cdof, (nv, 6)), ("con_dist", con_dist, (nc,)),
            ("con_pos", con_pos, (nc, 3)), ("con_frame", con_frame, (nc, 3, 3)))
-    for name, a, s in ins:
-        if (a.dtype != torch.float32 or tuple(a.shape) != (B,) + s
-                or not a.is_contiguous() or a.device != dev):
-            raise ValueError(f"kernel D: {name} must be contiguous float32 "
-                             f"{(B,) + s} on {dev}, got {a.dtype} "
-                             f"{tuple(a.shape)} on {a.device}")
-    if dev != m.device:
-        raise ValueError(f"kernel D: state on {dev}, model on {m.device}")
+    build.check_inputs("constraints", m.device, (B,), *ins)
+    dev = qpos.device
     st, t = _device_model(m, con_pair, dev)
     nl = max(len(t["lim_dof"]), 1)
     outs = [torch.empty((B,) + s, device=dev) for s in (
         (36, nc), (nl,), (nl,), (nl,), (nl,), (nc, 4), (nc, 4), (nc,))]
-    lib = build.load("constraints")
-    fn = lib.constraints_launch
-    fn.argtypes = [ConModel, ConIn, ConOut, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(fn(st, ConIn(*[a.data_ptr() for _, a, _ in ins]),
-                   ConOut(*[o.data_ptr() for o in outs]), B, stream),
-                "kernel D (constraints)")
-    launch_counts["constraints"] += 1
+    build.launch("constraints", _ARGTYPES, dev, st,
+                  ConIn(*[a.data_ptr() for _, a, _ in ins]),
+                  ConOut(*[o.data_ptr() for o in outs]), B)
     return tuple(outs)
 
 
 def constraints(m: Model, d: Data, con_dist, con_pos, con_frame, con_pair):
-    """Kernel B's constraint inputs of a batch: kernel D on CUDA tensors,
-    the plain version on CPU tensors."""
-    if d.qpos.is_cuda:
-        return _launch(m, d.qpos, d.qvel, d.subtree_com, d.cdof, con_dist,
-                       con_pos, con_frame, con_pair)
-    if d.qpos.device.type != "cpu":
-        raise ValueError(f"no constraint assembly for device {d.qpos.device}")
-    return constraints_plain(m, d, con_dist, con_pos, con_frame, con_pair)
+    """Kernel D on a batch: kernel B's constraint inputs, as
+    ``constraints_plain`` gives them."""
+    return _launch(m, *(x.contiguous() for x in (
+        d.qpos, d.qvel, d.subtree_com, d.cdof, con_dist, con_pos,
+        con_frame)), con_pair)
 
 
 def system(m: Model, d: Data, con_dist, con_pos, con_frame,
@@ -264,16 +249,14 @@ def system(m: Model, d: Data, con_dist, con_pos, con_frame,
         return constraint.make_constraints(m, d, con_dist, con_pos,
                                            con_frame, con_pair)
     dev = d.qpos.device
-    g36, lim_sign, lim_aref, lim_D, lim_pos, con_aref, con_D, pos = _launch(
-        m, *(x.contiguous() for x in (d.qpos, d.qvel, d.subtree_com, d.cdof,
-                                      con_dist, con_pos, con_frame)),
-        con_pair)
+    g36, lim_sign, lim_aref, lim_D, lim_pos, con_aref, con_D, pos = \
+        constraints(m, d, con_dist, con_pos, con_frame, con_pair)
     t = _device_model(m, con_pair, dev)[1]
     B, nc = g36.shape[0], g36.shape[2]
     if len(t["lim_dof"]):
         lim_dof = t["lim_dof"]
         onehot = constraint.limit_onehot(lim_dof, m.nv)
-    else:       # kernel B's inert row, as solver.kernel_b_system adds it
+    else:       # kernel B's inert row, as cg.kernel_b_system adds it
         lim_dof = np.zeros(1, np.int32)
         onehot = np.zeros((1, m.nv), np.float32)
     g = g36.view(B, 2, 3, 6, nc).permute(0, 1, 4, 2, 3)

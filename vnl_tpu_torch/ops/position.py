@@ -16,10 +16,10 @@ import ctypes
 import numpy as np
 import torch
 
-from vnl_tpu_torch.ops import build, launch_counts
+from vnl_tpu_torch.ops import build
 from vnl_tpu_torch.ops.linalg import inv_spd
 from vnl_tpu_torch.physics import inertia, kinematics
-from vnl_tpu_torch.physics.model import Model
+from vnl_tpu_torch.physics.model import Model, make_data
 
 WARPS = 8           # warps that sweep one matrix (kWarps of the source; one
                     # block per env, two matrices when damped)
@@ -46,7 +46,6 @@ def output_shapes(m: Model):
 def position_plain(m: Model, qpos: torch.Tensor):
     """Plain PyTorch position stage: kinematics, com_pos, CRB mass matrix
     and its inverse(s) by recursive Schur complements."""
-    from vnl_tpu_torch.physics.forward import make_data
     d = make_data(m, qpos.shape[0], qpos=qpos)
     d = kinematics.kinematics(m, d)
     d = kinematics.com_pos(m, d)
@@ -168,25 +167,18 @@ def kernel_tables(m: Model) -> dict:
     return dict(nrounds=nrounds, depth=depth, ints=ints, floats=floats)
 
 
-def _device_model(m: Model, device: torch.device):
+def _device_model(m: Model, device: torch.device) -> PosModel:
     """PosModel struct with the tables on ``device``, made once per model."""
-    key = ("position_kernel", str(device))
-    if key not in m.cache:
+    def make(device):
         t = kernel_tables(m)
-        held = {}
-        for n, a in t["ints"].items():
-            a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
-            held[n] = torch.as_tensor(a.astype(np.int32), device=device)
-        for n, a in t["floats"].items():
-            a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
-            held[n] = torch.as_tensor(a.astype(np.float32),
-                                      device=device).contiguous()
-        st = PosModel(nb=m.nbody, nj=m.njnt, nv=m.nv, nq=m.nq, ng=m.ngeom,
-                      damped=int(inertia.needs_implicit_damping(m)),
-                      nrounds=t["nrounds"], npair=len(t["ints"]["anc_pair"]),
-                      **{n: held[n].data_ptr() for n in held})
-        m.cache[key] = (st, held)
-    return m.cache[key][0]
+        held = dict(build.on_device(t["ints"], device, np.int32),
+                    **build.on_device(t["floats"], device, np.float32))
+        return PosModel(nb=m.nbody, nj=m.njnt, nv=m.nv, nq=m.nq, ng=m.ngeom,
+                        damped=int(inertia.needs_implicit_damping(m)),
+                        nrounds=t["nrounds"],
+                        npair=len(t["ints"]["anc_pair"]),
+                        **{n: held[n].data_ptr() for n in held}), held
+    return build.tables(m, "position", device, make)
 
 
 def resources(m: Model) -> dict:
@@ -199,41 +191,28 @@ def resources(m: Model) -> dict:
                 threads=32 * tile_warps(tr, tc) * nmat, route=route_name(m))
 
 
+_ARGTYPES = (PosModel, ctypes.c_void_p, PosOut, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int)
+
+
 def _launch(m: Model, qpos: torch.Tensor, skip: int = 0):
     """Launches kernel A.  ``skip`` is for profiling only (the outputs are
     then wrong): bit 0 leaves out the sweeps, bit 1 the subtree sums, bit
     2 the doubling rounds of the tree walk, bit 3 the assembly of qM."""
-    if qpos.dtype != torch.float32 or qpos.dim() != 2 or \
-            qpos.shape[1] != m.nq or not qpos.is_contiguous():
-        raise ValueError(f"kernel A takes contiguous float32 (B, {m.nq}) "
-                         f"qpos, got {qpos.dtype} {tuple(qpos.shape)}")
-    if qpos.device != m.device:
-        raise ValueError(f"qpos on {qpos.device}, model on {m.device}")
-    tr, tc = tile_shape(m.nv)
-    lib = build.load("position")
-    fn = lib.position_launch
-    fn.argtypes = [PosModel, ctypes.c_void_p, PosOut, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
     B = qpos.shape[0]
+    build.check_inputs("position", m.device, (B,), ("qpos", qpos, (m.nq,)))
+    tr, tc = tile_shape(m.nv)
     outs = [torch.empty((B,) + s, device=qpos.device, dtype=torch.float32)
             for s in output_shapes(m)]
     ptrs = [o.data_ptr() for o in outs]
     ptrs += [ptrs[-1]] * (len(OUTPUT_NAMES) - len(ptrs))
-    st = _device_model(m, qpos.device)
-    stream = torch.cuda.current_stream(qpos.device).cuda_stream
-    build.check(fn(st, qpos.data_ptr(), PosOut(*ptrs), B, tr, tc,
-                   stream, skip),
-                "kernel A (position)")
-    launch_counts["position"] += 1
+    build.launch("position", _ARGTYPES, qpos.device,
+                  _device_model(m, qpos.device), qpos.data_ptr(),
+                  PosOut(*ptrs), B, tr, tc, skip=skip)
     return tuple(outs)
 
 
 def position(m: Model, qpos: torch.Tensor):
     """The position stage of a batch: kernel A on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if qpos.is_cuda:
-        return _launch(m, qpos)
-    if qpos.device.type != "cpu":
-        raise ValueError(f"no position stage for device {qpos.device}")
-    return position_plain(m, qpos)
+    version elsewhere."""
+    return _launch(m, qpos) if qpos.is_cuda else position_plain(m, qpos)

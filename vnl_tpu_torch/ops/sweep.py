@@ -1,6 +1,6 @@
 """Kernel C: batched SPD inverse by the symmetric sweep (counterpart of
 vnl_tpu/ops/pallas_linalg.py: _sweep_kernel with its wrappers inv_spd_lanes
-and inv_spd_fused).
+and inv_spd_fused, here one function, ``inv_spd_sweep``).
 
 ``inv_spd_sweep(a)`` inverts contiguous float32 SPD matrices (..., n, n).
 On a CUDA tensor it launches the hand-written kernel csrc/sweep.cu by the
@@ -10,10 +10,10 @@ thread, two matrices a block, two pivots a barrier; 96 < n <= 238 keeps
 one matrix in shared memory.  On a CPU tensor it runs
 ``inv_spd_sweep_plain``, the same Jacobi scaling, the same n
 snapshot-and-update steps and the same symmetrisation as batched tensor
-operations.  There is no batch threshold
-and no other inverse to fall back on: a build or launch failure raises.
-The unfused position stage calls it as ``inv_spd_fused``
-(physics/inertia.py invert_mass_matrix).
+operations, or the plain inverse its caller names.  There is no batch
+threshold and no other inverse to fall back on: a build or launch failure
+raises.  The unfused position stage (physics/inertia.py crb) and Newton's
+H^-1 (physics/solver.py inv_spd) call it.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from vnl_tpu_torch.ops import build, launch_counts
+from vnl_tpu_torch.ops import build
 
 WARPS = 8            # warps that sweep one matrix on the register route
 # The routes the kernel source instantiates, as (TR, TC).  TC = 1 is the
@@ -136,11 +136,9 @@ def inv_spd_sweep_pairs_plain(a: torch.Tensor) -> torch.Tensor:
 
 
 def _check(a: torch.Tensor) -> None:
-    if a.dtype != torch.float32 or a.dim() < 2 or \
-            a.shape[-1] != a.shape[-2] or a.shape[-1] < 1 or \
-            not a.is_contiguous():
-        raise ValueError("kernel C takes contiguous float32 (..., n, n) "
-                         f"matrices, got {a.dtype} {tuple(a.shape)}")
+    """Kernel C's input: contiguous float32 (..., n, n)."""
+    n = a.shape[-1] if a.dim() else 0
+    build.check_inputs("sweep", a.device, a.shape[:-2], ("a", a, (n, n)))
 
 
 def resources(n: int) -> dict:
@@ -154,6 +152,9 @@ def resources(n: int) -> dict:
                 threads=threads, route=r.kind, tile=list(r.tile))
 
 
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p) + (ctypes.c_int,) * 4
+
+
 def _launch(a: torch.Tensor, skip: int = 0) -> torch.Tensor:
     """Launches kernel C on ``a`` by its route.  ``skip`` (profiling only;
     the result is then wrong): bit 0 leaves out the pivot loop, bit 1 the
@@ -161,30 +162,21 @@ def _launch(a: torch.Tensor, skip: int = 0) -> torch.Tensor:
     _check(a)
     n = a.shape[-1]
     tr, tc = route(n).tile
-    fn = build.load("sweep").sweep_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
     out = torch.empty_like(a)
     batch = a.numel() // (n * n)
     if batch:
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        with torch.cuda.device(a.device):
-            build.check(fn(a.data_ptr(), out.data_ptr(), batch, n, tr, tc,
-                           stream, skip), "kernel C (sweep)")
-        launch_counts["sweep"] += 1
+        build.launch("sweep", _ARGTYPES, a.device, a.data_ptr(),
+                      out.data_ptr(), batch, n, tr, tc, skip=skip)
     return out
 
 
-def inv_spd_sweep(a: torch.Tensor) -> torch.Tensor:
-    """Inverse of a batch of SPD matrices: kernel C on a CUDA tensor, the
-    plain version on a CPU tensor."""
+def inv_spd_sweep(a: torch.Tensor, plain=None) -> torch.Tensor:
+    """Inverse of a batch of SPD matrices: kernel C on a CUDA tensor;
+    elsewhere ``plain(a)``, by default the sweep's own plain version,
+    which takes kernel C's inputs alone."""
     if a.is_cuda:
         return _launch(a)
-    if a.device.type != "cpu":
-        raise ValueError(f"no SPD sweep for device {a.device}")
-    _check(a)
-    return inv_spd_sweep_plain(a)
-
-
-inv_spd_fused = inv_spd_sweep
+    if plain is None:
+        _check(a)
+        plain = inv_spd_sweep_plain
+    return plain(a)

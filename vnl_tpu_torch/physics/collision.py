@@ -16,9 +16,10 @@ axis), the 8 deepest kept.  "Deepest" is a stable sort (ties keep the lower
 index first, as XLA's top_k does), so tied corners land in the same slots
 as in the JAX package.
 
-On a CUDA device ``collide`` launches kernel E (ops/collision.py,
-csrc/collision.cu), one launch for all pair groups; ``collide_plain`` is
-the plain version, the CPU's path and the kernel's yardstick.
+``collide`` is the plain narrowphase on any device: the CPU's path and
+the yardstick of kernel E (ops/collision.py, csrc/collision.cu), which
+forward runs in its place on a CUDA device, one launch for all pair
+groups.
 """
 
 from __future__ import annotations
@@ -361,21 +362,7 @@ def pair_expansion(m: Model) -> np.ndarray:
 def collide(m: Model, d: Data) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor, np.ndarray]:
     """All candidate contact points of the batch: (dist (B, ncon),
-    pos (B, ncon, 3), frame (B, ncon, 3, 3), con_pair numpy (ncon,)).
-    Kernel E (ops/collision.py) on CUDA tensors, which it takes in float32
-    alone; the plain version on CPU tensors."""
-    if not m.ncon_max or d.geom_xpos.device.type == "cpu":
-        return collide_plain(m, d)
-    if not d.geom_xpos.is_cuda:
-        raise ValueError(f"no narrowphase for device {d.geom_xpos.device}")
-    from vnl_tpu_torch.ops import collision as collision_ops
-    return collision_ops.collide(m, d.geom_xpos.contiguous(),
-                                 d.geom_xmat.contiguous())
-
-
-def collide_plain(m: Model, d: Data) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor, np.ndarray]:
-    """``collide`` in plain PyTorch, on any device."""
+    pos (B, ncon, 3), frame (B, ncon, 3, 3), con_pair numpy (ncon,))."""
     B = d.qpos.shape[0]
     dtype = d.qpos.dtype
     if m.ncon_max == 0:

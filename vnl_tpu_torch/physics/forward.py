@@ -12,26 +12,32 @@ has two configurations: fused (kernel A does all of it in one launch, in
 every forward pass, RK4's included) and unfused (kinematics -> com_pos ->
 crb in plain PyTorch, the exact inverses by kernel C or a refinement of
 the carried ones).
+
+This is the one module of physics/ that calls the kernels bound to a
+Model: ops/position.py position, ops/collision.py collide,
+ops/constraints.py system and ops/cg.py solve, each of which runs its
+kernel on a CUDA device and the plain version of physics/ elsewhere.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import torch
 
 from vnl_tpu_torch import math as vmath
+from vnl_tpu_torch.ops import cg as cg_ops
+from vnl_tpu_torch.ops import collision as collision_ops
 from vnl_tpu_torch.ops import constraints as constraint_ops
 from vnl_tpu_torch.ops import position as position_ops
 from vnl_tpu_torch.ops.linalg import refine_inv_general
 from vnl_tpu_torch.physics import actuation as _actuation
-from vnl_tpu_torch.physics import collision as _collision
 from vnl_tpu_torch.physics import inertia as _inertia
 from vnl_tpu_torch.physics import kinematics as _kinematics
 from vnl_tpu_torch.physics import rne as _rne
-from vnl_tpu_torch.physics import solver as _solver
-from vnl_tpu_torch.physics.model import Data, IntegratorType, JointType, Model
+from vnl_tpu_torch.physics import sensor as _sensor
+# make_data lives beside Data (physics/model.py); it keeps its name here
+from vnl_tpu_torch.physics.model import (Data, IntegratorType, JointType,
+                                         Model, make_data)
 from vnl_tpu_torch.utils.profiler import part
 
 
@@ -40,36 +46,6 @@ def pin_fp32() -> None:
     JAX package pins f32 for the same reason, forward.py:126-134)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def make_data(m: Model, batch: int, qpos: Optional[torch.Tensor] = None,
-              qvel: Optional[torch.Tensor] = None,
-              dtype=torch.float32) -> Data:
-    """Fresh Data for ``batch`` envs at qpos0 (or the given state)."""
-    nb, nv, dev = m.nbody, m.nv, m.device
-
-    def z(*s):
-        return torch.zeros((batch,) + s, dtype=dtype, device=dev)
-
-    quat0 = z(nb, 4)
-    quat0[..., 0] = 1.0
-    eye = torch.eye(3, dtype=dtype, device=dev)
-    return Data(
-        qpos=(qpos.to(dtype) if qpos is not None
-              else m.qpos0.to(dtype).expand(batch, -1).clone()),
-        qvel=qvel.to(dtype) if qvel is not None else z(nv),
-        act=z(m.na), ctrl=z(m.nu), xpos=z(nb, 3), xquat=quat0,
-        xmat=eye.expand(batch, nb, 3, 3).clone(), xipos=z(nb, 3),
-        xanchor=z(m.njnt, 3), xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
-        geom_xmat=eye.expand(batch, m.ngeom, 3, 3).clone(),
-        subtree_com=z(nb, 3), cinert=z(nb, 6, 6), cdof=z(nv, 6),
-        cvel=z(nb, 6), qM=z(nv, nv), qMinv=z(nv, nv), qMhBinv=z(nv, nv),
-        qfrc_bias=z(nv), qfrc_passive=z(nv), qfrc_actuator=z(nv),
-        actuator_force=z(m.nu), act_dot=z(m.na), qfrc_smooth=z(nv),
-        qacc_smooth=z(nv), qfrc_constraint=z(nv), qacc=z(nv),
-        contact_dist=z(m.ncon_max), contact_pos=z(m.ncon_max, 3),
-        contact_frame=z(m.ncon_max, 3, 3), contact_force=z(m.ncon_max, 4),
-        sensordata=z(m.nsensordata))
 
 
 def fwd_position(m: Model, d: Data, refine_inverse: bool = False,
@@ -91,7 +67,7 @@ def fwd_position(m: Model, d: Data, refine_inverse: bool = False,
             d = _kinematics.com_pos(m, d)
             d = _inertia.crb(m, d, refine_inverse=refine_inverse)
     with part("collision"):
-        con_dist, con_pos, con_frame, con_pair = _collision.collide(m, d)
+        con_dist, con_pos, con_frame, con_pair = collision_ops.collide(m, d)
     d = d.replace(contact_dist=con_dist, contact_pos=con_pos,
                   contact_frame=con_frame)
     with part("constraints"):
@@ -123,8 +99,8 @@ def forward(m: Model, d: Data, refine_inverse: bool = False,
         qfrc_smooth = d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
         qacc_smooth = _inertia.solve_m(d, qfrc_smooth)
     with part("solve"):
-        qacc, qfrc_constraint, con_force = _solver.solve(m, d, efc,
-                                                         qacc_smooth)
+        qacc, qfrc_constraint, con_force = cg_ops.solve(m, d, efc,
+                                                        qacc_smooth)
         if not efc.ncon:
             con_force = qacc.new_zeros(qacc.shape[0], m.ncon_max, 4)
         elif con_force.shape[-1] == 3:             # elliptic rows -> pad
@@ -133,7 +109,6 @@ def forward(m: Model, d: Data, refine_inverse: bool = False,
                   qacc=qacc, qfrc_constraint=qfrc_constraint,
                   contact_force=con_force)
     if compute_sensors and m.nsensordata:
-        from vnl_tpu_torch.physics import sensor as _sensor
         d = d.replace(sensordata=_sensor.sensors(m, d))
     return d
 

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from vnl_tpu_torch.ops.linalg import refine_inv
-from vnl_tpu_torch.ops.sweep import inv_spd_fused
+from vnl_tpu_torch.ops.sweep import inv_spd_sweep
 from vnl_tpu_torch.physics.model import Data, DisableBit, IntegratorType, Model
 
 
@@ -66,14 +66,14 @@ def invert_mass_matrix(m: Model, d: Data,
     qM = d.qM
     if not needs_implicit_damping(m):
         inv = (refine_inv(qM, d.qMinv) if refine_inverse
-               else inv_spd_fused(qM.contiguous()))
+               else inv_spd_sweep(qM.contiguous()))
         return d.replace(qMinv=inv, qMhBinv=inv)
     hB = (m.opt.timestep * m.dof_damping).to(qM.dtype)
     stacked = torch.stack([qM, qM + torch.diag(hB)])
     if refine_inverse:
         inv = refine_inv(stacked, torch.stack([d.qMinv, d.qMhBinv]))
     else:
-        inv = inv_spd_fused(stacked)
+        inv = inv_spd_sweep(stacked)
     return d.replace(qMinv=inv[0], qMhBinv=inv[1])
 
 

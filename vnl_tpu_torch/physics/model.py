@@ -303,3 +303,31 @@ class Data:
         return dataclasses.replace(self, **kwargs)
 
 
+def make_data(m: Model, batch: int, qpos: Optional[torch.Tensor] = None,
+              qvel: Optional[torch.Tensor] = None,
+              dtype=torch.float32) -> Data:
+    """Fresh Data for ``batch`` envs at qpos0 (or the given state)."""
+    nb, nv, dev = m.nbody, m.nv, m.device
+
+    def z(*s):
+        return torch.zeros((batch,) + s, dtype=dtype, device=dev)
+
+    quat0 = z(nb, 4)
+    quat0[..., 0] = 1.0
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    return Data(
+        qpos=(qpos.to(dtype) if qpos is not None
+              else m.qpos0.to(dtype).expand(batch, -1).clone()),
+        qvel=qvel.to(dtype) if qvel is not None else z(nv),
+        act=z(m.na), ctrl=z(m.nu), xpos=z(nb, 3), xquat=quat0,
+        xmat=eye.expand(batch, nb, 3, 3).clone(), xipos=z(nb, 3),
+        xanchor=z(m.njnt, 3), xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
+        geom_xmat=eye.expand(batch, m.ngeom, 3, 3).clone(),
+        subtree_com=z(nb, 3), cinert=z(nb, 6, 6), cdof=z(nv, 6),
+        cvel=z(nb, 6), qM=z(nv, nv), qMinv=z(nv, nv), qMhBinv=z(nv, nv),
+        qfrc_bias=z(nv), qfrc_passive=z(nv), qfrc_actuator=z(nv),
+        actuator_force=z(m.nu), act_dot=z(m.na), qfrc_smooth=z(nv),
+        qacc_smooth=z(nv), qfrc_constraint=z(nv), qacc=z(nv),
+        contact_dist=z(m.ncon_max), contact_pos=z(m.ncon_max, 3),
+        contact_frame=z(m.ncon_max, 3, 3), contact_force=z(m.ncon_max, 4),
+        sensordata=z(m.nsensordata))

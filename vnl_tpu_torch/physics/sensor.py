@@ -10,6 +10,8 @@ import numpy as np
 import torch
 
 from vnl_tpu_torch import math as vmath
+from vnl_tpu_torch.physics import collision as _collision
+from vnl_tpu_torch.physics import rne as _rne
 from vnl_tpu_torch.physics.model import Data, GeomType, Model, SensorType
 
 
@@ -37,7 +39,6 @@ def sensors(m: Model, d: Data) -> torch.Tensor:
 
     # total acceleration: chain sums of cdof qacc + cdof_dot qvel, less
     # gravity (an accelerometer reads the proper acceleration)
-    from vnl_tpu_torch.physics import rne as _rne
     _, cdof_dot = _rne.com_vel(m, d)
     cacc = torch.einsum("bv,nvk->nbk", m.table("body_chain_dof_mask", dtype),
                         d.cdof * d.qacc[..., None]
@@ -92,7 +93,6 @@ def _touch(m: Model, d: Data, site: int, body: int, spos, smat):
     B, dtype = d.qpos.shape[0], d.qpos.dtype
     if m.ncon_max == 0:
         return d.qpos.new_zeros(B)
-    from vnl_tpu_torch.physics import collision as _collision
     con_pair = _collision.pair_expansion(m)
     cb1 = np.asarray(m.geom_bodyid)[np.asarray(m.pair_geom1)[con_pair]]
     cb2 = np.asarray(m.geom_bodyid)[np.asarray(m.pair_geom2)[con_pair]]

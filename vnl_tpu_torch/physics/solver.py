@@ -9,8 +9,9 @@ projection onto the friction cone (``_elliptic_zones``).  Fixed iteration
 counts, no early exit.
 
 Which path runs:
-- CG on a factored pyramidal system with contacts: the whole solve is
-  kernel B (ops/cg.py); ``_cg_loop`` here is its plain version's body.
+- CG on a factored pyramidal system with contacts: forward sends it to
+  kernel B (ops/cg.py solve), not here; ``_cg_loop`` is the body of its
+  plain version.
 - CG on the dense Jacobian (the elliptic cone) or without contacts: the
   plain ``_cg_loop``.  As in the JAX package, an elliptic CG solve never
   takes kernel B: the fused solve wants a factored system (con_Jc None),
@@ -24,7 +25,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from vnl_tpu_torch.ops import linalg, sweep
@@ -203,9 +203,7 @@ def inv_spd(H: torch.Tensor) -> torch.Tensor:
     """Newton's H^-1: kernel C on a CUDA tensor (no fallback: a build or
     launch failure raises), the plain recursive Schur inverse on a CPU
     tensor."""
-    if H.is_cuda:
-        return sweep.inv_spd_sweep(H.contiguous())
-    return linalg.inv_spd(H)
+    return sweep.inv_spd_sweep(H.contiguous(), plain=linalg.inv_spd)
 
 
 def newton_hessian(d: Data, efc: EfcSystem, lim_jar, con_jar):
@@ -249,43 +247,6 @@ def _newton_loop(m: Model, d: Data, efc: EfcSystem, qacc_smooth,
     return x, lim_jx, con_fx
 
 
-def kernel_b_system(m: Model, efc: EfcSystem) -> EfcSystem:
-    """The system as kernel B takes it: a contact-only model gets one inert
-    limit row (sign 0, D 0), which keeps the kernel's shapes non-empty
-    (solver.py:253-263 in the JAX package)."""
-    if efc.nlimit:
-        return efc
-    z = efc.con_cdof.new_zeros(efc.con_cdof.shape[0], 1)
-    return efc.replace(lim_dof=np.zeros(1, np.int32),
-                       lim_onehot=efc.con_cdof.new_zeros(1, m.nv),
-                       lim_sign=z, lim_aref=z, lim_D=z, lim_pos=z, nlimit=1)
-
-
-def g36(efc: EfcSystem) -> torch.Tensor:
-    """Kernel B's (B, 36, ncon) moment arms [G2 | G1 rows, f-major]: kernel
-    D's own where it built the system, else packed from G1 and G2."""
-    if efc.g36 is not None:
-        return efc.g36
-    return torch.cat([
-        efc.con_G2.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon),
-        efc.con_G1.permute(0, 2, 3, 1).reshape(-1, 18, efc.ncon)],
-        1).contiguous()
-
-
-def cg_inputs(m: Model, d: Data, efc: EfcSystem, qacc_smooth, n_iter: int):
-    """The flat arguments and static structure of the CG solve (the
-    signature of ops/cg.py, kernel B)."""
-    from vnl_tpu_torch.ops import cg as cg_ops
-    efc = kernel_b_system(m, efc)
-    args = (d.qM, d.qMinv, qacc_smooth.contiguous(), efc.con_cdof,
-            g36(efc), efc.lim_sign, efc.lim_aref, efc.lim_D,
-            efc.con_mu.contiguous(), efc.con_aref, efc.con_D)
-    statics = cg_ops.CgStatics.make(m.nv, efc.lim_dof, efc.con_chain1,
-                                    efc.con_chain2, n_iter,
-                                    max(m.opt.ls_iterations, 1))
-    return args, statics
-
-
 def solve(m: Model, d: Data, efc: EfcSystem, qacc_smooth: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (qacc, qfrc_constraint, contact forces (B, ncon, rows)):
@@ -297,10 +258,6 @@ def solve(m: Model, d: Data, efc: EfcSystem, qacc_smooth: torch.Tensor
     n_iter = max(m.opt.iterations, 1)
     if m.opt.solver == int(SolverType.NEWTON):
         x, lim_jx, con_fx = _newton_loop(m, d, efc, qacc_smooth, n_iter)
-    elif efc.con_Jc is None and efc.ncon > 0:   # the whole solve is kernel B
-        from vnl_tpu_torch.ops import cg as cg_ops
-        args, statics = cg_inputs(m, d, efc, qacc_smooth, n_iter)
-        return cg_ops.cg(*args, statics=statics)
     else:
         x, lim_jx, con_fx = _cg_loop(d.qM, d.qMinv, efc, qacc_smooth, n_iter,
                                      m.opt.ls_iterations)

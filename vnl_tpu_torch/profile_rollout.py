@@ -30,12 +30,14 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import re
 import sys
 import time
 from typing import Optional
 
 import torch
+
+from vnl_tpu_torch.ops import KERNELS, build
+from vnl_tpu_torch.physics import forward
 
 BATCH = 1024
 STEPS = 4
@@ -43,13 +45,7 @@ STEPS = 4
 
 # the hand-written kernels by group, every route of each (csrc/*.cu),
 # demangled or not
-KERNEL_GROUPS = tuple(
-    (group, re.compile(rf"(?<![a-z_]){names}_kernel(?![a-z_])"))
-    for group, names in (("kernel A (position)", "position(_warp)?"),
-                         ("kernel B (cg)", "cg(_wide)?"),
-                         ("kernel C (sweep)", "sweep(_tile|_warp)?"),
-                         ("kernel D (constraints)", "constraints"),
-                         ("kernel E (collision)", "collision")))
+KERNEL_GROUPS = tuple((k.label, k.pattern) for k in KERNELS.values())
 
 
 def _group(name: str) -> Optional[str]:
@@ -156,9 +152,7 @@ def profile_rollout(cuda_graphs: bool, batch: int = BATCH,
 # the part of the control step that launches each hand-written kernel on
 # the fused paths: their launches go through ctypes and leave no
 # operation in the trace to find a range around
-KERNEL_PARTS = {"kernel A (position)": "position", "kernel B (cg)": "solve",
-                "kernel D (constraints)": "constraints",
-                "kernel E (collision)": "collision"}
+KERNEL_PARTS = {k.label: k.part for k in KERNELS.values() if k.part}
 
 
 def device_by_part(prof):
@@ -250,8 +244,6 @@ def main() -> int:
 
     from vnl_tpu_torch import compat, kernel_bench
     from vnl_tpu_torch.bench import gpu_name_and_power_limit
-    from vnl_tpu_torch.ops import build
-    from vnl_tpu_torch.physics import forward
 
     build.build_all()
     if args.parts:

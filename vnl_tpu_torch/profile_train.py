@@ -30,6 +30,8 @@ import time
 import torch
 
 from vnl_tpu_torch.bench import TRAIN_KW, gpu_name_and_power_limit
+from vnl_tpu_torch.ops import build
+from vnl_tpu_torch.physics.forward import pin_fp32
 from vnl_tpu_torch.profile_rollout import device_groups, host_launches
 
 
@@ -168,8 +170,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from vnl_tpu_torch.ops import build
-    from vnl_tpu_torch.physics.forward import pin_fp32
     build.build_all()
     pin_fp32()
     fused = bool(args.fused_position)

@@ -33,6 +33,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from vnl_tpu_torch.ops import build
+from vnl_tpu_torch.physics.forward import pin_fp32
+
 OUT = os.path.join("build", "run_humanoid")
 
 # the tools' defaults: num_timesteps, num_envs
@@ -163,8 +166,6 @@ def main(argv=None) -> Dict:
     if cuda:
         if not torch.cuda.is_available():
             p.error("no CUDA device (use --device cpu)")
-        from vnl_tpu_torch.ops import build
-        from vnl_tpu_torch.physics.forward import pin_fp32
         build.build_all()
         pin_fp32()
     rec = run(args.num_timesteps, args.num_envs, args.device, args.out)
