@@ -28,7 +28,12 @@ Phases, in order; any failure exits non-zero:
      plane-box and box-box keep held to all their candidates), bit for
      bit across two launches, timed at 1024 and 128 envs on the twin and
      the humanoid with both instantiations' registers and spills, a row
-     each and a {"kernel_e": ...} line;
+     each and a {"kernel_e": ...} line; then kernel F (GAE's reverse loop)
+     against the plain loop on the card at [20, 32] (the training cells'
+     minibatch) and [20, 1024] (the bench's), on time-major views of
+     [B, T] buffers, bit for bit and across two launches, timed behind a
+     spin kernel beside the plain loop eagerly and captured as a CUDA
+     graph, a row each and a {"kernel_f": ...} line;
   4. the slice: RodentTracking (twin + clip) reset for 1024 envs and a
      20-control-step generate_unroll (100 physics substeps) with the keeper
      policy, sampling from a seeded generator, each control step one
@@ -198,7 +203,7 @@ Phases, in order; any failure exits non-zero:
      stepping bench eager and graphed,
      final states equal bit for bit; the launch counts of each pair equal;
      one more replay of each rollout's control-step graph traced with
-     torch.profiler, its kernels A to E equal to the launches the
+     torch.profiler, its kernels A to F equal to the launches the
      capture counts a replay (the counts a replay adds are those the
      device ran);
      then vnl_tpu_torch.profile_rollout and profile_train (fused; the
@@ -218,7 +223,7 @@ Phases, in order; any failure exits non-zero:
      {"cliplib_humanoid": ...} line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
-twin's A, B, D, E and C; B's widest route on the padded twin; A, B, D
+twin's A, B, D, E, F and C; B's widest route on the padded twin; A, B, D
 and E at the humanoid's shapes; A and C at the ant's; C at the humanoid's
 pair) with
 its launches on the paths that run that shape (phase 14 counts for each
@@ -250,6 +255,7 @@ from vnl_tpu_torch.ops import (KERNELS, build, launch_counts,
 from vnl_tpu_torch.ops import cg as cg_ops
 from vnl_tpu_torch.ops import collision as col_ops
 from vnl_tpu_torch.ops import constraints as con_ops
+from vnl_tpu_torch.ops import gae as gae_ops
 from vnl_tpu_torch.ops import position as pos
 from vnl_tpu_torch.physics import collision, forward, inertia, kinematics
 
@@ -596,6 +602,78 @@ def phase_kernel_e(device, gen):
     return rows, errs
 
 
+# kernel F's shapes: the training cells' minibatch and the bench's
+F_SHAPES = ((20, 32), (20, 1024))
+
+
+def gae_bytes(T, B):
+    """Bytes kernel F moves: reads truncation, termination, reward and
+    value of every step and the bootstrap value, writes targets and
+    advantages."""
+    return 4 * (4 * T * B + B + 2 * T * B)
+
+
+def gae_inputs(T, B, gen):
+    """Kernel F's inputs as the loss hands them over: time-major views of
+    [B, T] buffers, a quarter of the steps done, half of those truncated;
+    and a bootstrap value."""
+    done = torch.rand(B, T, generator=gen, device="cuda") < 0.25
+    cut = torch.rand(B, T, generator=gen, device="cuda") < 0.5
+    rows = [(done & cut).float(), (done & ~cut).float(),
+            torch.rand(B, T, generator=gen, device="cuda"),
+            torch.randn(B, T, generator=gen, device="cuda")]
+    return [x.transpose(0, 1) for x in rows] + [
+        torch.randn(B, generator=gen, device="cuda")]
+
+
+def phase_kernel_f(gen):
+    """Kernel F against the plain loop on the card at F_SHAPES, bit for
+    bit, and across two launches; timed behind a spin kernel beside the
+    plain loop eagerly and as a CUDA graph of its nodes (what it cost an
+    SGD update's graph).  Returns (kernels rows, errors)."""
+    from vnl_tpu_torch.kernel_bench import QUEUED, time_ms
+    kw = dict(lambda_=0.95, discount=0.9)       # the cells' loss
+    rows, errs = [], {}
+    res = gae_ops.resources()
+    for T, B in F_SHAPES:
+        x = gae_inputs(T, B, gen)
+        ker = gae_ops._launch(*x, **kw)
+        plain = gae_ops.compute_gae_plain(*x, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(k, p) for k, p in zip(ker, plain)):
+            err = max(float((k - p).abs().max()) for k, p in zip(ker, plain))
+            raise AssertionError(f"gae {T}x{B}: kernel F differs from the "
+                                 f"plain loop by up to {err}")
+        errs[f"{T}x{B}"] = dict(same_bits=True)
+        same_bits(f"gae {T}x{B}", ker, gae_ops._launch(*x, **kw))
+        graph = torch.cuda.CUDAGraph()
+        gae_ops.compute_gae_plain(*x, **kw)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            gae_ops.compute_gae_plain(*x, **kw)
+        b_ms, b_by = bound_ms(gae_bytes(T, B), 14 * T * B)
+        rows.append(dict(
+            name="gae" if B == 32 else f"gae_{B}", kernel="gae",
+            route="cuda", shape=dict(T=T, B=B),
+            source="vnl_tpu_torch/csrc/gae.cu",
+            replaces="vnl_tpu_torch/ops/gae.py compute_gae_plain",
+            max_abs_err=0.0,
+            ms=time_ms(lambda: gae_ops._launch(*x, **kw), queued=QUEUED),
+            plain_ms=time_ms(lambda: gae_ops.compute_gae_plain(*x, **kw),
+                             reps=5),
+            plain_graph_ms=time_ms(graph.replay, queued=QUEUED),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            regs=res["regs"], smem_bytes=res["smem_bytes"],
+            blocks_per_sm=res["blocks_per_sm"],
+            local_bytes=res["local_bytes"], spill_bytes=spill_bytes("gae")))
+        del graph
+    print(json.dumps({"kernel_f": dict(errors=errs, rows=[{k: r[k] for k in (
+        "name", "shape", "ms", "plain_ms", "plain_graph_ms", "bound_ms",
+        "bound_by", "regs", "local_bytes", "spill_bytes", "blocks_per_sm")}
+        for r in rows])}), flush=True)
+    return rows, errs
+
+
 WIDEST_PAD = 240      # inactive contacts added to the twin's 23: 1,052 rows
 
 
@@ -684,13 +762,13 @@ def unroll(env, make_policy, graphed, again=False):
     return out
 
 
-# the launch counters of kernels A to E, and the group by which
+# the launch counters of kernels A to F, and the group by which
 # profile_rollout.device_groups names each kernel's routes
 COUNTED_GROUPS = tuple((k.name, k.label) for k in KERNELS.values())
 
 
 def profiled_launches(run) -> dict:
-    """The launches of kernels A to E on the device while ``run()``
+    """The launches of kernels A to F on the device while ``run()``
     runs, by launch counter, counted in a torch.profiler trace of it: for
     a graph replay, the kernels that really ran, beside the counts that
     ops.ReplayCounts adds for it from its capture."""
@@ -1982,7 +2060,7 @@ def rollout_pair(tag, env, make_policy):
         counter, 0) for counter, _ in COUNTED_GROUPS}
     if graphed["profiled"] != per_replay or not any(per_replay.values()):
         raise AssertionError(f"{tag}: a profiled control-step replay ran "
-                             f"{graphed['profiled']} of kernels A to E; "
+                             f"{graphed['profiled']} of kernels A to F; "
                              f"its capture counts {per_replay}")
     return graphed["counts"], dict(
         compared=len(list(graphs.named_leaves(
@@ -2066,14 +2144,14 @@ def eval_metrics(metrics) -> dict:
 
 def replay_profiled(tag, graph) -> dict:
     """One more replay of an envs.StateGraph traced with torch.profiler:
-    the kernels A to E it ran must be the launches its capture counts
+    the kernels A to F it ran must be the launches its capture counts
     a replay.  Returns them."""
     per_replay = {counter: graph.report["launches_per_replay"].get(
         counter, 0) for counter, _ in COUNTED_GROUPS}
     ran = profiled_launches(lambda: graph(graph.state))
     if ran != per_replay or not any(per_replay.values()):
         raise AssertionError(f"{tag}: a profiled replay ran {ran} of "
-                             f"kernels A to E; its capture counts "
+                             f"kernels A to F; its capture counts "
                              f"{per_replay}")
     return ran
 
@@ -2430,6 +2508,7 @@ def main() -> int:
     row_bw, errs_bw = phase_kernel_b_widest(m, gen)
     row_d, errs_d = phase_kernel_d(m, gen)
     rows_e, errs_e = phase_kernel_e(device, gen)
+    rows_f, errs_f = phase_kernel_f(gen)
     counts, info["rollout"] = phase_rollout(device)
     row_c, errs_c = phase_kernel_c(m, gen)
     counts_fused, info["training_fused"] = phase_training(True, steps=2)
@@ -2456,8 +2535,8 @@ def main() -> int:
                           counts_graphs["humanoid"], counts_run_h)
     counts_ant = add_counts(counts_ant, counts_num["ant"],
                             counts_graphs["ant"])
-    kernels = [row_a, row_b, row_bw, row_d] + rows_e + [row_c] + rows_h + \
-        rows_ant + [row_ch]
+    kernels = [row_a, row_b, row_bw, row_d] + rows_e + rows_f + [row_c] + \
+        rows_h + rows_ant + [row_ch]
     for row in kernels:
         # each shape's launches on the paths that run it (the twin's rows:
         # phases 4, 6, 7, 11, 12, 13, 14, 15, 16; the humanoid's: 8, 14,
@@ -2482,7 +2561,7 @@ def main() -> int:
                                  "its paths")
     info["details"] = dict({"position": errs_a, "cg": errs_b,
                             "cg_widest": errs_bw, "constraints": errs_d,
-                            "collision": errs_e,
+                            "collision": errs_e, "gae": errs_f,
                             "sweep": errs_c},
                            **errs_h, **errs_ant)
 

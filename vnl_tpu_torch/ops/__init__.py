@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the port, each in ``ops/<name>.py`` beside
 its plain PyTorch version, with its one entry in ``KERNELS``: its source,
-launch counter, label, device-op pattern, control-step part and nvcc
-flags, from which the build (ops/build.py, which also holds what the
-wrappers share), the profiling tools and chip_smoke.py take them.
+launch counter, label, device-op pattern, graph part and nvcc flags,
+from which the build (ops/build.py, which also holds what the wrappers
+share), the profiling tools and chip_smoke.py take them.
 
 ``launch_counts`` counts kernel launches by name; ``build.launch`` adds
 one for each launch and nothing else does, so a run can show that the main
@@ -22,12 +22,13 @@ from typing import MutableMapping, NamedTuple, Optional, Tuple
 
 class Kernel(NamedTuple):
     """A hand-written kernel.  ``name``: its source csrc/<name>.cu, its
-    library and its key in ``launch_counts``; ``letter``: kernel A to E
+    library and its key in ``launch_counts``; ``letter``: kernel A to F
     in the docs and the errors; ``routes``: the pattern of
     its ``__global__`` functions' names before ``_kernel``, by which a
-    trace's device ops are grouped; ``part``: the part of the control
-    step (utils/profiler.py ``part``) that launches it on the fused paths
-    (kernel C has none); ``flags``: nvcc flags of its own."""
+    trace's device ops are grouped; ``part``: the part of the graph
+    (utils/profiler.py ``part``) that launches it: a stage of the control
+    step on the fused paths, or the SGD update's ``gae`` (kernel C has
+    none); ``flags``: nvcc flags of its own."""
 
     name: str
     letter: str
@@ -54,9 +55,10 @@ KERNELS = {k.name: k for k in (
     Kernel("cg", "B", "cg(_wide)?", "solve"),
     Kernel("sweep", "C", "sweep(_tile|_warp)?", None),
     Kernel("constraints", "D", "constraints", "constraints"),
-    # kernel E rounds each operation on its own, as the plain version's
-    # separate PyTorch operations do
-    Kernel("collision", "E", "collision", "collision", ("-fmad=false",)))}
+    # kernels E and F round each operation on their own, as their plain
+    # versions' separate PyTorch operations do
+    Kernel("collision", "E", "collision", "collision", ("-fmad=false",)),
+    Kernel("gae", "F", "gae", "gae", ("-fmad=false",)))}
 
 launch_counts = collections.Counter()
 

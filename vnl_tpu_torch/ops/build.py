@@ -154,19 +154,22 @@ def on_device(arrays: dict, device, dtype=None) -> dict:
     return out
 
 
-def check_inputs(name: str, device, lead: Sequence[int], *inputs) -> None:
+def check_inputs(name: str, device, lead: Sequence[int], *inputs,
+                 strided: bool = False) -> None:
     """Raises ValueError unless each (input name, tensor, trailing shape)
-    of ``inputs`` is a contiguous float32 tensor of shape lead + trailing
-    on ``device``."""
+    of ``inputs`` is a float32 tensor of shape lead + trailing on
+    ``device``, contiguous unless the kernel takes ``strided`` inputs."""
     for what, a, shape in inputs:
         want = tuple(lead) + tuple(shape)
         if (a.dtype != torch.float32 or tuple(a.shape) != want
-                or not a.is_contiguous() or a.device != device):
+                or not (strided or a.is_contiguous())
+                or a.device != device):
             raise ValueError(
-                f"kernel {KERNELS[name].letter}: {what} must be contiguous "
+                f"kernel {KERNELS[name].letter}: {what} must be "
+                f"{'' if strided else 'contiguous '}"
                 f"float32 {want} on {device}, got {a.dtype} "
                 f"{tuple(a.shape)} on {a.device}"
-                f"{'' if a.is_contiguous() else ', strided'}")
+                f"{'' if strided or a.is_contiguous() else ', strided'}")
 
 
 def launch(name: str, argtypes, device, *args, skip=None) -> None:

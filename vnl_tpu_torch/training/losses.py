@@ -2,7 +2,8 @@
 of vnl_tpu/training/losses.py).
 
 TD(lambda) targets and advantages come from one reverse pass over the
-unroll; the surrogate is the clipped importance ratio; the value loss is
+unroll (``compute_gae``: kernel F on a CUDA device, ops/gae.py); the
+surrogate is the clipped importance ratio; the value loss is
 weighted 0.25; the entropy bonus uses one fresh sample; the VAE regulariser
 KL(posterior || N(0, 1)) is scaled by kl_weight.
 """
@@ -13,7 +14,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from vnl_tpu_torch.ops.gae import compute_gae
 from vnl_tpu_torch.training.types import Metrics, Transition
+from vnl_tpu_torch.utils import profiler
 
 
 def correlation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -30,26 +33,6 @@ def correlation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def kl_divergence(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """Mean elementwise KL(N(mean, exp(logvar)) || N(0, 1))."""
     return 0.5 * torch.mean(mean ** 2 + torch.exp(logvar) - logvar - 1.0)
-
-
-@torch.no_grad()
-def compute_gae(truncation, termination, rewards, values, bootstrap_value,
-                lambda_: float = 1.0, discount: float = 0.99):
-    """TD(lambda) value targets and advantages over [T, B] tensors, without
-    gradients.  Truncated steps contribute nothing (mask); terminated steps
-    cut the discounted continuation."""
-    mask = 1.0 - truncation
-    cont = discount * (1.0 - termination)
-    next_values = torch.cat([values[1:], bootstrap_value[None]], 0)
-    deltas = rewards + cont * next_values - values
-    gae = torch.zeros_like(bootstrap_value)
-    lambda_returns, advantages = [], []
-    for t in range(values.shape[0] - 1, -1, -1):
-        advantages.append(mask[t] * (deltas[t] + cont[t] * gae))
-        gae = mask[t] * (deltas[t] + lambda_ * cont[t] * gae)
-        lambda_returns.append(gae)
-    targets = torch.stack(lambda_returns[::-1]) + values
-    return targets, torch.stack(advantages[::-1])
 
 
 def compute_ppo_intention_loss(
@@ -93,10 +76,11 @@ def compute_ppo_intention_loss(
     values = ppo_network.value_apply(obs)
     tail_value = ppo_network.value_apply(tm(data.next_observation)[-1])
 
-    targets, advantages = compute_gae(
-        truncation=truncation, termination=termination, rewards=rewards,
-        values=values.detach(), bootstrap_value=tail_value.detach(),
-        lambda_=gae_lambda, discount=discounting)
+    with profiler.part("gae"):
+        targets, advantages = compute_gae(
+            truncation=truncation, termination=termination, rewards=rewards,
+            values=values.detach(), bootstrap_value=tail_value.detach(),
+            lambda_=gae_lambda, discount=discounting)
     if normalize_advantage:
         advantages = ((advantages - advantages.mean())
                       / (advantages.std(unbiased=False) + 1e-8))

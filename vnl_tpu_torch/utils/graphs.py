@@ -25,11 +25,12 @@ What a capture needs, and the helper sees to:
 
 The control step tags its parts (``profiler.part``: the physics'
 ``position``, ``collision``, ``constraints``, ``velocity``, ``solve`` and
-``integrate`` stages, the ``policy`` and the rest of the ``env``).  A
-capture reads the graph in progress as each tagged part begins and ends
-and keeps the nodes each added (the innermost part open gets them) in its
-report, ``parts``; a replay adds them to the ``graph_nodes.<part>``
-counters of an open ``profiler.recording``.
+``integrate`` stages, the ``policy`` and the rest of the ``env``), the
+SGD update its GAE (``gae``, kernel F).  A capture reads the graph in
+progress as each tagged part begins and ends and keeps the nodes each
+added (the innermost part open gets them) in its report, ``parts``; a
+replay adds them to the ``graph_nodes.<part>`` counters of an open
+``profiler.recording``.
 
 On the CPU nothing is captured: a ``Graph`` of CPU tensors raises, and
 the callers run their eager code there.  A failed capture raises; nothing

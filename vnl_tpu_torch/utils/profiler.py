@@ -433,12 +433,12 @@ def parts_counted(read: Callable[[], int]):
 
 
 class part:
-    """``with part(name):`` tags the work inside as part ``name`` of the
-    control step: a ``parts_counted`` block of the calling thread counts
-    what it adds, and while a torch.profiler is active it is a
-    ``record_function`` range ``part.<name>``, whose device time a trace
-    of an eager step gives (a graph's replay has no ranges).  Nothing
-    otherwise."""
+    """``with part(name):`` tags the work inside as part ``name`` of a
+    graph (a stage of the control step, the SGD update's ``gae``): a
+    ``parts_counted`` block of the calling thread counts what it adds,
+    and while a torch.profiler is active it is a ``record_function``
+    range ``part.<name>``, whose device time a trace of an eager step
+    gives (a graph's replay has no ranges).  Nothing otherwise."""
 
     __slots__ = ("name", "_counts", "_annotation")
 
