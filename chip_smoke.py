@@ -12,25 +12,30 @@ Phases, in order; any failure exits non-zero:
      against the plain version in float32; an env that misses it, at most
      0.5% of a batch, must meet the plain version run in float64 at the
      same tolerance), and two launches against each other, bit for bit;
-     then the widest route, cg_kernel<0>, on 1024 twin contact systems
-     padded with 240 inactive contacts (1,052 contact rows; no scene of
-     the repo has that many, so no path launches it) by check_cg, with a
-     row of its own; then kernel D (the constraint system of a substep,
-     kernel B's inputs) against its plain version (make_constraints and
-     cg_inputs' packing) on 1024 twin contact states and on 1024 with
-     contacts and limit rows near, at and past where they act (rtol 1e-5,
-     atol 1e-5 of each output's largest entry), bit for bit across two
+     then the widest route, cg_kernel<0>, on 1024 contact systems of the
+     CMU humanoid (56 limits and 982 contact slots: 3,984 rows) by
+     kernel_bench.check_cg_widest (the median and 90th percentile of the
+     envs' gap to the plain version in float64 within 3x, the largest
+     within 10x, of the plain float32 solves'), bit for bit
+     across two launches, with a row of its own; then kernel D (the
+     constraint system of a substep, kernel B's inputs) against its plain
+     version (make_constraints and cg_inputs' packing) on 1024 twin
+     contact states and on 1024 with contacts and limit rows near, at and
+     past where they act (rtol 1e-5, atol 1e-5 of each output's largest
+     entry), bit for bit across two
      launches, timed at 1024 and 128 envs, with a row of its own; then
      kernel E (the narrowphase of every candidate pair) against the plain
-     narrowphase on the CPU on 1024 states of the box, round and
-     ellipsoid scenes (every pair type between them), the humanoid and
-     the twin (kernel_bench.check_collision: atol 2e-5; the points that
-     plane-box and box-box keep held to all their candidates), bit for
-     bit across two launches, timed at 1024 and 128 envs on the twin and
-     the humanoid with both instantiations' registers and spills, a row
-     each and a {"kernel_e": ...} line; then kernel F (GAE's reverse loop)
-     against the plain loop on the card at [20, 32] (the training cells'
-     minibatch) and [20, 1024] (the bench's), on time-major views of
+     narrowphase on the CPU on 1024 states of the box, round, ellipsoid
+     and convex scenes (every pair type between them), the humanoid, the
+     twin and the CMU humanoid (kernel_bench.check_collision: atol 2e-5;
+     the points that plane-box and box-box keep held to all their
+     candidates; the convex pairs' normals and points by check_convex),
+     bit for bit across two launches, timed at 1024 and 128 envs on the
+     twin, the humanoid and the CMU humanoid with every instantiation's
+     registers and spills, a row each and a {"kernel_e": ...} line; then
+     kernel F (GAE's reverse loop) against the plain loop on the card at
+     [20, 32] (the training cells' minibatch) and [20, 1024] (the
+     bench's), on time-major views of
      [B, T] buffers, bit for bit and across two launches, timed behind a
      spin kernel beside the plain loop eagerly and captured as a CUDA
      graph, a row each and a {"kernel_f": ...} line;
@@ -220,16 +225,22 @@ Phases, in order; any failure exits non-zero:
      with the TPU tool's hyperparameters for two intervals of two
      training steps and three graphed evaluations of 256 envs (one
      capture), which must give finite losses and move the parameters; a
-     {"cliplib_humanoid": ...} line.
+     {"cliplib_humanoid": ...} line;
+ 17. the CMU humanoid (dm_control's CMUHumanoidPositionControlledV2020,
+     vnl_tpu_torch/assets/dm_cmu_humanoid): its compile on the card equal
+     to the host's; HumanoidTracking on it reset for 1024 envs and driven
+     20 control steps (graphed, as in 4), kernels A, B on its widest
+     route (counted as cg_widest), D and E (its convex instantiation) at
+     least once a substep; a {"cmu": ...} line.
 Then it prints the training env-steps/s of both configurations, the card's
 name and power limit, one JSON line with a row per kernel and shape (the
-twin's A, B, D, E, F and C; B's widest route on the padded twin; A, B, D
-and E at the humanoid's shapes; A and C at the ant's; C at the humanoid's
-pair) with
+twin's A, B, D, E, F and C; A, B, D and E at the humanoid's shapes; B's
+widest route and E at the CMU humanoid's; A and C at the ant's; C at the
+humanoid's pair) with
 its launches on the paths that run that shape (phase 14 counts for each
-scene it runs; for B's widest route, ops.launch_counts["cg_widest"]
-summed over every path the run drives, which must be 0: no scene has
-that many rows), time per launch, plain time, bound, error, registers, shared memory and resident blocks per SM,
+scene it runs; B's widest route ops.launch_counts["cg_widest"] of phase
+17), time per launch, plain time, bound, error, registers, shared
+memory and resident blocks per SM,
 every number measured in this run (the twin's rows count phase 16's
 probe, the humanoid's its learning run), and last
 {"ok": true, "device": {...}}.
@@ -517,19 +528,24 @@ def collision_bytes(m, batch):
     return 4 * batch * (12 * len(geoms) + 13 * len(pair))
 
 
-# kernel E's scenes: every pair type between the first three
-E_SCENES = ("boxes", "round", "ellipsoid", "humanoid", "twin")
+# kernel E's scenes: every pair type between the first four
+E_SCENES = ("boxes", "round", "ellipsoid", "convex", "humanoid", "twin",
+            "cmu")
+# the scenes whose kernel E is timed, and their rows' names
+E_ROWS = dict(twin="collision", humanoid="collision_humanoid",
+              cmu="collision_cmu")
 
 
 def phase_kernel_e(device, gen):
     """Kernel E against the plain narrowphase on the CPU
     (kernel_bench.check_collision) on BATCH states of each of E_SCENES, and
-    bit for bit across two launches; on the twin and the humanoid timed at
-    BATCH and 128 envs, beside the plain version on the card.  Returns
-    (kernels rows, errors)."""
+    bit for bit across two launches; on E_ROWS's scenes timed at BATCH and
+    128 envs, beside the plain version on the card.  Returns (kernels
+    rows, errors)."""
     from vnl_tpu_torch import compat, kernel_bench as kb, mjcf
     xml = dict(boxes=kb.BOX_SCENE, round=kb.ROUND_SCENE,
-               ellipsoid=kb.ELLIPSOID_SCENE, humanoid=compat.DM_HUMANOID_XML)
+               ellipsoid=kb.ELLIPSOID_SCENE, convex=kb.CONVEX_SCENE,
+               humanoid=compat.DM_HUMANOID_XML, cmu=compat.CMU_HUMANOID_XML)
 
     def model(name, dev):
         if name == "twin":
@@ -543,7 +559,8 @@ def phase_kernel_e(device, gen):
         else:
             qpos = torch.as_tensor(kb.collision_states(
                 m.qpos0.cpu().numpy(), m.jnt_range.cpu().numpy(),
-                name == "humanoid", SEED + batch, batch), device=device)
+                name in ("humanoid", "cmu"), SEED + batch, batch),
+                device=device)
         return kinematics.kinematics(m, forward.make_data(m, batch,
                                                           qpos=qpos))
 
@@ -559,7 +576,7 @@ def phase_kernel_e(device, gen):
             ker, model(name, "cpu"), d.replace(
                 qpos=d.qpos.cpu(), geom_xpos=gx.cpu(), geom_xmat=gm.cpu()),
             flat_env=name == "boxes"), active=int((ker[0] < 0).sum()))
-        if name not in ("twin", "humanoid"):
+        if name not in E_ROWS:
             continue
         timed = {}
         for batch in (BATCH, 128):
@@ -573,15 +590,14 @@ def phase_kernel_e(device, gen):
         took = res[res["takes"]]
         t = col_ops.kernel_tables(m)
         rows.append(dict(
-            name="collision" if name == "twin" else "collision_humanoid",
-            kernel="collision", route="cuda",
+            name=E_ROWS[name], kernel="collision", route="cuda",
             shape=dict(batch=BATCH, npair=len(t["pair"]),
                        ncon=len(t["con_pair"]),
-                       instantiation="collision_kernel<%s>" % (
-                           "true" if t["boxes"] else "false")),
+                       instantiation=e_instantiation(t["route"])),
             source="vnl_tpu_torch/csrc/collision.cu",
             replaces="vnl_tpu_torch/physics/collision.py collide",
-            max_abs_err=max(errs[name][k] for k in ("dist", "pos", "frame")),
+            max_abs_err=max(errs[name][k] for k in ("dist", "pos", "frame")
+                            if k in errs[name]),
             ms=timed[BATCH][0], plain_ms=timed[BATCH][1],
             ms_128=timed[128][0], plain_ms_128=timed[128][1],
             bound_ms=bound_ms(collision_bytes(m, BATCH), 0)[0],
@@ -591,15 +607,28 @@ def phase_kernel_e(device, gen):
             smem_bytes=took["smem_bytes"],
             blocks_per_sm=took["blocks_per_sm"],
             local_bytes=took["local_bytes"],
-            spill_bytes=spill_bytes("collision", "ILb%dEE" % t["boxes"]),
+            spill_bytes=spill_bytes("collision",
+                                    e_mangled(t["route"])),
             instantiations={k: dict(res[k], spill_bytes=spill_bytes(
-                "collision", "ILb%dEE" % (k == "boxes")))
-                for k in ("boxes", "no_boxes")}))
+                "collision", e_mangled(r)))
+                for k, r in col_ops.ROUTES.items()}))
     print(json.dumps({"kernel_e": dict(errors=errs, rows=[{k: r[k] for k in (
         "name", "shape", "ms", "ms_128", "plain_ms", "plain_ms_128",
         "bound_ms", "bound_ms_128", "regs", "local_bytes", "blocks_per_sm",
         "instantiations")} for r in rows])}), flush=True)
     return rows, errs
+
+
+def e_instantiation(route: int) -> str:
+    """Kernel E's instantiation of ``route`` (ops/collision.py ROUTES:
+    bit 0 kBoxes, bit 1 kConvex), as the trace names it."""
+    return "collision_kernel<%s, %s>" % tuple(
+        "true" if route & bit else "false" for bit in (1, 2))
+
+
+def e_mangled(route: int) -> str:
+    """The part of that instantiation's mangled name that names it."""
+    return "ILb%dELb%dEE" % (route & 1, route >> 1 & 1)
 
 
 # kernel F's shapes: the training cells' minibatch and the bench's
@@ -674,31 +703,33 @@ def phase_kernel_f(gen):
     return rows, errs
 
 
-WIDEST_PAD = 240      # inactive contacts added to the twin's 23: 1,052 rows
-
-
-def phase_kernel_b_widest(m, gen):
+def phase_kernel_b_widest(gen):
     """Kernel B's widest route, cg_kernel<0> (more than 1,024 contact rows
-    or 256 limit rows), on BATCH twin contact systems padded with
-    WIDEST_PAD inactive contacts (kernel_bench.padded_contacts), by
-    kernel_bench.check_cg, and bit for bit across two launches; returns
-    (kernels row, errors).  No path of the repo launches this route."""
-    from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg, contact_states,
-                                            padded_contacts, time_ms)
-    (args, st), active = contact_states(m, BATCH, gen)
-    args, st = padded_contacts(args, st, WIDEST_PAD)
+    or 256 limit rows), at the CMU humanoid's system (56 limits and 982
+    contact slots: 3,984 rows) on BATCH contact states, by
+    kernel_bench.check_cg_widest, and bit for bit across two launches;
+    returns (kernels row, errors).  Its launches are those of phase 17's
+    paths."""
+    from vnl_tpu_torch.kernel_bench import (QUEUED, check_cg_widest,
+                                            contact_states, scene, time_ms)
+    m, kw = scene("cmu")
+    (args, st), active = contact_states(m, BATCH, gen, press=kw["press"])
     name = cg_ops.kernel_name(st)
-    if name != "cg_kernel<0>":
-        raise AssertionError(f"the padded twin takes {name}")
+    if name != "cg_kernel<0>" or st.nlimit + 4 * st.ncon != 3984:
+        raise AssertionError(f"the CMU humanoid takes {name} at "
+                             f"{st.nlimit + 4 * st.ncon} rows")
     ker = cg_ops._launch(st, args)
     torch.cuda.synchronize()
-    errs = check_cg(st, args, ker)                 # rtol = atol = 1e-3
+    errs = check_cg_widest(st, args, ker)
+    plain = cg_ops.cg_plain(*args, statics=st)
+    errs.update({n: float((k - w).abs().max())
+                 for n, k, w in zip(CG_OUT, ker, plain)})
     same_bits("cg_widest", ker, cg_ops._launch(st, args))
     ms = time_ms(lambda: cg_ops._launch(st, args), queued=QUEUED)
     plain_ms = time_ms(lambda: cg_ops.cg_plain(*args, statics=st), reps=5)
     b_ms, b_by = bound_ms(*cg_cost(st, args))
     res = cg_ops.resources(st, m.device)
-    row = dict(name="cg_widest", kernel="cg", route="cuda",
+    row = dict(name="cg_widest_cmu", kernel="cg", route="cuda",
                shape=dict(batch=BATCH, nv=st.nv, ncon=st.ncon,
                           nlimit=st.nlimit, rows=st.nlimit + 4 * st.ncon,
                           instantiation=name),
@@ -711,14 +742,14 @@ def phase_kernel_b_widest(m, gen):
                blocks_per_sm=res["blocks_per_sm"],
                local_bytes=res["local_bytes"],
                spill_bytes=spill_bytes("cg", mangled(name)),
-               checked_envs=BATCH, off_envs=errs["off_envs"],
-               unstable_envs=errs["unstable_envs"],
-               # counted on its own; no scene of the repo has > 1,024
-               # contact rows, so no path may launch it
-               counter="cg_widest", on_paths=False)
+               checked_envs=BATCH,
+               gap_quantiles=dict(q=[0.5, 0.9, 1.0], kernel=errs["kernel"],
+                                  plain=errs["plain"]),
+               counter="cg_widest")
     print(json.dumps({"kernel_b_widest": {k: row[k] for k in (
-        "shape", "max_abs_err", "off_envs", "ms", "plain_ms", "bound_ms",
-        "regs", "local_bytes", "spill_bytes")}}), flush=True)
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "regs",
+        "local_bytes", "spill_bytes", "smem_bytes", "gap_quantiles")}
+        | dict(active_contacts=active)}), flush=True)
     return row, dict(errs, active_contacts=active)
 
 
@@ -1371,6 +1402,30 @@ def phase_humanoid(device, trees=None):
     return ([row_a, row_b, row_d], add_counts(c_track, c_stand, c_cli),
             rep, {"position_humanoid": errs_a, "cg_humanoid": errs_b,
                   "constraints_humanoid": errs_d})
+
+
+def phase_cmu(device):
+    """Phase 17, the CMU humanoid: the committed scene compiled onto the
+    card, every field equal to the host's compile; HumanoidTracking on it
+    (the cell cmu_train's env), wrapped for training, reset for BATCH envs
+    and driven UNROLL control steps (graphed, as in 4), kernels A, B on
+    its widest route, D and E at least once a substep.  Returns (launch
+    counts, report)."""
+    from vnl_tpu_torch import compat
+    from vnl_tpu_torch.envs import HumanoidTracking
+    t_phase = time.perf_counter()
+    rep = {}
+    _, rep["compile_s"] = check_scene_compile(
+        compat.CMU_HUMANOID_XML,
+        {"solver": "cg", "iterations": 6, "ls_iterations": 6}, device)
+    need = {k: UNROLL * 5 for k in ("position", "cg", "cg_widest",
+                                    "constraints", "collision")}
+    counts, rep["tracking"] = env_rollout(
+        HumanoidTracking(mjcf_path=compat.CMU_HUMANOID_XML, device=device),
+        device, need, (125, 1315))
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"cmu": rep}), flush=True)
+    return counts, rep
 
 
 def phase_ant(device, trees=None):
@@ -2505,7 +2560,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     row_a, errs_a = phase_kernel_a(m, gen)
     row_b, errs_b = phase_kernel_b(m, gen)
-    row_bw, errs_bw = phase_kernel_b_widest(m, gen)
+    row_bw, errs_bw = phase_kernel_b_widest(gen)
     row_d, errs_d = phase_kernel_d(m, gen)
     rows_e, errs_e = phase_kernel_e(device, gen)
     rows_f, errs_f = phase_kernel_f(gen)
@@ -2527,6 +2582,7 @@ def main() -> int:
     counts_graphs, info["graphs"] = phase_graphs(device)
     counts_clip, counts_run_h, info["cliplib_humanoid"] = \
         phase_cliplib_humanoid(device)
+    counts_cmu, info["cmu"] = phase_cmu(device)
     twin_counts = add_counts(counts, counts_fused, counts_unfused,
                              *counts_cli, counts_dp, counts_tools,
                              counts_step, counts_num["twin"],
@@ -2541,20 +2597,12 @@ def main() -> int:
         # each shape's launches on the paths that run it (the twin's rows:
         # phases 4, 6, 7, 11, 12, 13, 14, 15, 16; the humanoid's: 8, 14,
         # 15, 16, where C's n 27 pair runs only in 14; the ant's: 9, 14,
-        # 15; phase 15 counts its graphed runs), each path counted
-        # from zero on its own; B's widest route is on none, so its count
-        # is summed over all of them and must be 0
+        # 15; the CMU humanoid's: 17; phase 15 counts its graphed runs),
+        # each path counted from zero on its own
         paths = (counts_h if row["name"].endswith("humanoid") else
+                 counts_cmu if row["name"].endswith("cmu") else
                  counts_ant if "ant" in row["name"] else twin_counts)
         counter = row.pop("counter", row["kernel"])
-        if not row.pop("on_paths", True):
-            row["launches"] = add_counts(twin_counts, counts_h,
-                                         counts_ant).get(counter, 0)
-            if row["launches"]:
-                raise AssertionError(f"{row['name']} launched "
-                                     f"{row['launches']} times on the "
-                                     "paths, which none should take")
-            continue
         row["launches"] = paths.get(counter, 0)
         if row["launches"] < 1:
             raise AssertionError(f"kernel {row['name']} never launched on "

@@ -650,20 +650,31 @@ def test_control_step_graph_is_the_eager_step(model):
     assert runs[0][2]["constraints"] == runs[0][2]["collision"] == 20
 
 
+# per body: kernel B's rows and kernel E's candidate pairs by group, as a
+# control-step capture notes them
+CAPTURE_NOTES = {
+    "twin": (159, dict(plane=16, body=0, box=0, convex=0)),
+    "humanoid": (729, dict(plane=19, body=142, box=0, convex=0)),
+    "cmu": (3984, dict(plane=45, body=825, box=0, convex=75))}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("body", ["twin", "humanoid"])
+@pytest.mark.parametrize("body", ["twin", "humanoid", "cmu"])
 def test_control_step_graph_parts_add_up_to_its_nodes(model, body):
     """The control-step graph's capture report: the nodes of the eight
     tagged parts (utils/profiler.py ``part``) add up to the graph's node
     count, every part adds some, and a replay counts each part's nodes
-    under ``graph_nodes.<part>`` in an open recording."""
-    from vnl_tpu_torch import models
+    under ``graph_nodes.<part>`` in an open recording.  The report also
+    keeps kernel B's rows (``solve_rows``) and kernel E's pairs by group
+    (``pair_groups``), which a capture in an open recording counts."""
+    from vnl_tpu_torch import compat, models
     from vnl_tpu_torch.envs import (HumanoidTracking, make_twin_env,
                                     wrap_for_training)
     from vnl_tpu_torch.training import ActorStepGraph
     from vnl_tpu_torch.utils import profiler
     raw = make_twin_env(device="cuda") if body == "twin" else \
-        HumanoidTracking(device="cuda")
+        HumanoidTracking(device="cuda") if body == "humanoid" else \
+        HumanoidTracking(mjcf_path=compat.CMU_HUMANOID_XML, device="cuda")
     env = wrap_for_training(raw, episode_length=3)
     gen = torch.Generator(device="cuda").manual_seed(8)
     state = env.reset(B, generator=gen)
@@ -680,13 +691,22 @@ def test_control_step_graph_parts_add_up_to_its_nodes(model, body):
                           "velocity", "solve", "integrate", "env", "policy"}
     assert all(n > 0 for n in parts.values()), parts
     assert sum(parts.values()) == step.report["nodes"], parts
+    rows, groups = CAPTURE_NOTES[body]
+    assert (step.report["solve_rows"], step.report["pair_groups"]) == \
+        (rows, groups)
     with profiler.recording("cuda") as rec:
         with profiler.timed("train.step", step=0):
             step(state)
+        with profiler.timed("train.step", step=1):
+            ActorStepGraph(env, policy, gen, ("truncation", "traj"))(state)
     counters = rec.summary([0])["counters"]
     assert counters["graph_nodes"] == [step.report["nodes"]]
     for p, n in parts.items():
         assert counters[f"graph_nodes.{p}"] == [n], p
+    counters = rec.summary([1])["counters"]
+    assert counters["solve_rows"] == [rows]
+    for g, n in groups.items():
+        assert counters[f"pair_groups.{g}"] == [n], g
 
 
 @pytest.mark.cuda

@@ -169,7 +169,8 @@ def test_kernel_d_bytes_are_chip_smokes(cell):
             (float(want), 0.0)
 
 
-@pytest.mark.parametrize("cell", ["twin_train", "humanoid_train"])
+@pytest.mark.parametrize("cell", ["twin_train", "humanoid_train",
+                                  "cmu_train"])
 def test_kernel_e_bytes_are_chip_smokes(cell):
     """benchmark/counts/collision.py's bytes of a launch, read from the
     reference's model, are chip_smoke.py's from the program's."""
@@ -177,7 +178,8 @@ def test_kernel_e_bytes_are_chip_smokes(cell):
     from benchmark.counts import collision as col_counts
 
     config = spec.cell(cell).config
-    m = loops.resolve(config["program"]["env"])(device="cpu").sys
+    m = loops.resolve(config["program"]["env"])(
+        device="cpu", **config.get("env_args", {})).sys
     for batch in (1, 128, 1024):
         assert col_counts.collision_cost(config, batch) == \
             (float(chip_smoke.collision_bytes(m, batch)), 0.0)

@@ -40,6 +40,14 @@ the CPU (see ``export_goldens``).
 writes benchmark/reference/assets/humanoid_model.npz: the vnl_tpu compile
 of the committed dm_control suite humanoid with the humanoid envs' solver
 options (HUMANOID_COMPILE), which the benchmark's plain reference runs.
+
+  python tools/export_torch_assets.py --benchmark-cmu
+
+writes benchmark/reference/assets/cmu_humanoid_model.npz: the compile of
+the committed CMU humanoid scene (tools/export_cmu_humanoid.py) with the
+same options, by vnl_tpu_torch's compiler, since vnl_tpu's has no
+narrowphase for its ellipsoid pairs (tests/test_torch_cmu_humanoid.py
+holds that compile against MuJoCo's).
 """
 
 from __future__ import annotations
@@ -71,6 +79,10 @@ HUMANOID_COMPILE = dict(overrides={"solver": "cg", "iterations": 6,
                                    "ls_iterations": 6})
 BENCHMARK_HUMANOID = os.path.join(ROOT, "benchmark", "reference", "assets",
                                   "humanoid_model.npz")
+# the CMU humanoid, compiled the same way by the port's compiler
+CMU_XML = os.path.join(ASSETS, "dm_cmu_humanoid", "cmu_humanoid.xml")
+BENCHMARK_CMU = os.path.join(ROOT, "benchmark", "reference", "assets",
+                             "cmu_humanoid_model.npz")
 
 # joints that carry a motor: the 33 tracked joints of configs/env_config.yaml
 # minus three head/finger joints, so nu = 30 like the keeper's action head
@@ -787,8 +799,20 @@ def export_goldens():
     return 0
 
 
+def cmu_model_numpy() -> dict:
+    """The port's compile of the CMU humanoid scene, as BENCHMARK_CMU
+    holds it."""
+    from vnl_tpu_torch import mjcf as torch_mjcf
+    return torch_mjcf.compile_numpy(torch_mjcf.load_spec(CMU_XML,
+                                                         **HUMANOID_COMPILE))
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--benchmark-cmu"]:
+        np.savez(BENCHMARK_CMU, **cmu_model_numpy())
+        print(f"{BENCHMARK_CMU}: {os.path.getsize(BENCHMARK_CMU)} bytes")
+        return 0
     import jax
     jax.config.update("jax_platforms", "cpu")
     if argv[:1] == ["--checkpoint"]:

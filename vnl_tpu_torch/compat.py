@@ -25,6 +25,17 @@ KEEPER_POLICY = os.path.join(ASSETS, "keeper_13fcbe84_policy.npz")
 # third-party scenes, copied verbatim (assets/LICENSES.md)
 DM_HUMANOID_XML = os.path.join(ASSETS, "dm_humanoid", "humanoid.xml")
 GYM_ANT_XML = os.path.join(ASSETS, "gym_ant.xml")
+CMU_HUMANOID_XML = os.path.join(ASSETS, "dm_cmu_humanoid", "cmu_humanoid.xml")
+
+
+def asset_path(path: str) -> str:
+    """``path`` where it names a file from the working directory, else the
+    file of that name under ASSETS: a scene that a configuration file names
+    (``dm_cmu_humanoid/cmu_humanoid.xml``) is found from any working
+    directory."""
+    if os.path.isabs(path) or os.path.exists(path):
+        return path
+    return os.path.join(ASSETS, path)
 
 Arrays = Union[str, Mapping[str, np.ndarray]]
 

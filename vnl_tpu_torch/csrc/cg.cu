@@ -38,7 +38,13 @@
 //    needs anyway.
 //  * Two routes, by the number of constraint rows: up to 160 (the twin's
 //    159) the one described here; wider systems (the humanoid's 729) take
-//    cg_wide_kernel, whose design is set out above it.
+//    cg_wide_kernel, whose design is set out above it.  Systems wider
+//    than the wide route (the CMU humanoid's 3,984 rows) take this one's
+//    widest instantiation, cg_kernel<0>, which reads its rows from shared
+//    memory in every round of the line search and leaves g (36 floats a
+//    contact) in global memory, read through the read-only path: with g
+//    in shared memory the CMU humanoid's system would need 310 KB of the
+//    227 KB a block may have, without it 169 KB.
 //  * The line search needs no barrier between its rounds: warp 0 holds the
 //    nlimit + 4 ncon rows' (J x - aref, J p, D) in registers, LSN rows a
 //    lane, reduces the active-set sums with xor shuffles and hands alpha to
@@ -103,13 +109,16 @@ constexpr int kThreads = 256;   // threads per block (one block per env)
 constexpr int kMaxWarps = kThreads / 32;
 
 // Offsets (in floats) into dynamic shared memory.  Rows of the constraint
-// system are kept together, limits first, then 4 facets per contact.
+// system are kept together, limits first, then 4 facets per contact.  g
+// has no room where it stays in global memory (g_shared false: the
+// widest route).
 struct Layout {
   int M, Minv, cdof, g, mu, lsign, aref, D, jx, jp, f, x, Mxa, gr, p, Mp, tmp,
       jtf, side, red, total;
 };
 
-__host__ __device__ inline Layout make_layout(int nv, int nc, int nl) {
+__host__ __device__ inline Layout make_layout(int nv, int nc, int nl,
+                                              bool g_shared) {
   Layout L;
   const int nmat = ((nv * nv + 3 + 3) / 4) * 4;  // room for the 16-byte shift
   const int R = nl + 4 * nc;
@@ -117,7 +126,7 @@ __host__ __device__ inline Layout make_layout(int nv, int nc, int nl) {
   L.M = o;     o += nmat;
   L.Minv = o;  o += nmat;
   L.cdof = o;  o += nv * 6;
-  L.g = o;     o += 36 * nc;
+  L.g = o;     o += g_shared ? 36 * nc : 0;
   L.mu = o;    o += 2 * nc;
   L.lsign = o; o += nl;
   L.aref = o;  o += R;
@@ -139,7 +148,9 @@ __host__ __device__ inline Layout make_layout(int nv, int nc, int nl) {
 }
 
 struct Smem {
-  float *M, *Minv, *cdof, *g, *mu, *lsign, *aref, *D, *jx, *jp, *f;
+  float *M, *Minv, *cdof;
+  const float* g;
+  float *mu, *lsign, *aref, *D, *jx, *jp, *f;
   float *x, *Mxa, *gr, *p, *Mp, *tmp, *jtf, *side, *red;
 };
 
@@ -170,6 +181,16 @@ __device__ float* stage(float* dst16, const float* src, int n) {
     cp_async16(dst + head + 4 * i, src + head + 4 * i);
   for (int i = tail + tid; i < n; i += nt) cp_async4(dst + i, src + i);
   return dst;
+}
+
+// g's entry i: from shared memory, or (kGlobalG, the widest route) from
+// global memory through the read-only path
+template <bool kGlobalG>
+__device__ __forceinline__ float g_at(const float* g, int i) {
+  if constexpr (kGlobalG)
+    return __ldg(g + i);
+  else
+    return g[i];
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -214,6 +235,7 @@ __device__ void jv_sides(const CgModel& m, const Smem& s, const float* v,
 
 // Second half of J v: the 4 facet rows of each contact, one lane per row;
 // the lanes of a contact share its three frame components by shuffles.
+template <bool kGlobalG>
 __device__ void jv_rows(const CgModel& m, const Smem& s, float* cjv) {
   const int nc = m.ncon, nt = blockDim.x;
   const int lane = threadIdx.x & 31, t00 = threadIdx.x - lane;
@@ -223,8 +245,10 @@ __device__ void jv_rows(const CgModel& m, const Smem& s, float* cjv) {
     float base = 0.0f;
     if (ok && f < 3) {
       for (int k = 0; k < 6; ++k)
-        base += s.g[(f * 6 + k) * nc + c] * s.side[c * 6 + k] -
-                s.g[(18 + f * 6 + k) * nc + c] * s.side[(nc + c) * 6 + k];
+        base += g_at<kGlobalG>(s.g, (f * 6 + k) * nc + c) *
+                    s.side[c * 6 + k] -
+                g_at<kGlobalG>(s.g, (18 + f * 6 + k) * nc + c) *
+                    s.side[(nc + c) * 6 + k];
     }
     const int q0 = lane & ~3;
     const float b0 = __shfl_sync(0xffffffffu, base, q0);
@@ -244,6 +268,7 @@ __device__ __forceinline__ float force(float jx, float aref, float D) {
 }
 
 // First half of J^T f: per side and spatial component, G f of its contact.
+template <bool kGlobalG>
 __device__ void jtf_sides(const CgModel& m, const Smem& s) {
   const int nc = m.ncon, tid = threadIdx.x, nt = blockDim.x;
   const float* cf = s.f + m.nlimit;
@@ -256,7 +281,7 @@ __device__ void jtf_sides(const CgModel& m, const Smem& s) {
                          s.mu[c * 2 + 1] * (f4[2] - f4[3])};
     float acc = 0.0f;
     for (int f = 0; f < 3; ++f)
-      acc += s.g[(sd * 18 + f * 6 + k) * nc + c] * fv[f];
+      acc += g_at<kGlobalG>(s.g, (sd * 18 + f * 6 + k) * nc + c) * fv[f];
     s.side[i] = acc;
   }
 }
@@ -362,9 +387,11 @@ cg_kernel(CgModel m, CgIn in, CgOut out, int skip) {
   // the first mvw warps hold a row of the matvecs each thread
   const int mvw = (nv + 31) >> 5, mvt = mvw * 32;
 
-  const Layout L = make_layout(nv, nc, nl);
+  constexpr bool kGlobalG = LSN == 0;   // g stays in global memory
+  const Layout L = make_layout(nv, nc, nl, !kGlobalG);
   Smem s;
-  s.cdof = sm + L.cdof; s.g = sm + L.g; s.mu = sm + L.mu;
+  s.cdof = sm + L.cdof; s.mu = sm + L.mu;
+  s.g = kGlobalG ? in.g36 + (size_t)e * 36 * nc : sm + L.g;
   s.lsign = sm + L.lsign; s.aref = sm + L.aref; s.D = sm + L.D;
   s.jx = sm + L.jx; s.jp = sm + L.jp; s.f = sm + L.f; s.x = sm + L.x;
   s.Mxa = sm + L.Mxa; s.gr = sm + L.gr; s.p = sm + L.p; s.Mp = sm + L.Mp;
@@ -379,8 +406,9 @@ cg_kernel(CgModel m, CgIn in, CgOut out, int skip) {
 
   for (int i = tid; i < nv * 6; i += nt)
     s.cdof[i] = in.cdof[(size_t)e * nv * 6 + i];
-  for (int i = tid; i < 36 * nc; i += nt)
-    s.g[i] = in.g36[(size_t)e * 36 * nc + i];
+  if constexpr (!kGlobalG)
+    for (int i = tid; i < 36 * nc; i += nt)
+      sm[L.g + i] = in.g36[(size_t)e * 36 * nc + i];
   for (int i = tid; i < 2 * nc; i += nt)
     s.mu[i] = in.con_mu[(size_t)e * 2 * nc + i];
   for (int i = tid; i < 4 * nc; i += nt) {
@@ -401,11 +429,11 @@ cg_kernel(CgModel m, CgIn in, CgOut out, int skip) {
   // gradient at x0
   jv_sides(m, s, s.x, s.jx, tid, nt, skip);
   __syncthreads();
-  jv_rows(m, s, s.jx + nl);
+  jv_rows<kGlobalG>(m, s, s.jx + nl);
   __syncthreads();
   for (int r = tid; r < R; r += nt) s.f[r] = force(s.jx[r], s.aref[r], s.D[r]);
   __syncthreads();
-  jtf_sides(m, s);
+  jtf_sides<kGlobalG>(m, s);
   __syncthreads();
   grad(m, s, s.gr, skip);
   asm volatile("cp.async.wait_all;\n" ::);
@@ -426,7 +454,7 @@ cg_kernel(CgModel m, CgIn in, CgOut out, int skip) {
     else
       jv_sides(m, s, s.p, s.jp, tid - mvt, nt - mvt, skip);
     __syncthreads();
-    jv_rows(m, s, s.jp + nl);
+    jv_rows<kGlobalG>(m, s, s.jp + nl);
     __syncthreads();
 
     // exact line search on the piecewise quadratic along p, on warp 0
@@ -489,7 +517,7 @@ cg_kernel(CgModel m, CgIn in, CgOut out, int skip) {
       s.f[r] = force(jx, s.aref[r], s.D[r]);
     }
     __syncthreads();
-    jtf_sides(m, s);
+    jtf_sides<kGlobalG>(m, s);
     __syncthreads();
     grad(m, s, s.tmp, skip);  // g_new
     __syncthreads();
@@ -975,8 +1003,10 @@ static const void* route(const CgModel& m, const CgWide& w, size_t* smem) {
     *smem = (size_t)make_wlayout(w).total * sizeof(float);
     return (const void*)pick_wide_kernel(m);
   }
-  *smem = (size_t)make_layout(m.nv, m.ncon, m.nlimit).total * sizeof(float);
-  return (const void*)pick_kernel(m);
+  const CgKernel fn = pick_kernel(m);
+  *smem = (size_t)make_layout(m.nv, m.ncon, m.nlimit, fn != cg_kernel<0>)
+              .total * sizeof(float);
+  return (const void*)fn;
 }
 
 // out4 = registers per thread, local-memory bytes per thread, shared-memory

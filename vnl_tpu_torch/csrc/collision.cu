@@ -1,5 +1,6 @@
 // Kernel E: the narrowphase of every candidate pair of a substep, all pair
-// types, in one launch; one thread per (env, candidate pair).
+// types, in one launch; one thread per (env, candidate pair), and one
+// warp per (env, convex pair).
 //
 // Replaces no TPU kernel: the JAX package leaves vnl_tpu/physics/
 // collision.py collide to XLA's fusions.  On the card the plain version
@@ -42,6 +43,20 @@
 //  * Box pairs are a template branch (kBoxes): their selection would raise
 //    the register count of every scene, and only scenes with boxes
 //    take the instantiation that has them (ops/collision.py picks it).
+//  * The convex pairs (sphere, capsule and ellipsoid against an
+//    ellipsoid) are a second template branch (kConvex), for the same
+//    reason.  Each minimises the support function of the two cores over
+//    the unit sphere by kConvexIters Newton steps in a trust region from
+//    each of its start directions, as physics/collision.py's convex pair
+//    routines do, a fixed count with no data-dependent exit.  They take a
+//    warp a pair of an env, in blocks after the other pairs' (the last
+//    nconvex rows of the tables), a search a lane (convex_pair): a
+//    capsule's 22 searches cost one search's time, and the same whatever
+//    the shapes.  The steps take the derivatives along the two tangent
+//    directions directly (t . grad, t^T hess t'), not through the 3 x 3
+//    Hessian of the plain version, and may part from the plain version's
+//    where two candidates tie within rounding: these pairs match it to
+//    the solution's accuracy, not bit for bit.
 //  * Every slot is written every step, active or not: activity is carried
 //    by the sign of dist downstream.
 // fp32 throughout; the kernel allocates nothing and runs on the caller's
@@ -51,6 +66,7 @@
 
 struct ColModel {
   int npair, ngeom, ncon;
+  int nconvex;              // the convex pairs: the last nconvex rows
   const int* pair_int;      // (kPairI, npair), fields below
   const float* pair_size;   // (6, npair): size of geom 1, then of geom 2
 };
@@ -69,7 +85,8 @@ enum PairI { kType, kG1, kG2, kSlot, kStride, kPairI };
 // pair types, in collision._ORDER's order (ops/collision.py PAIR_TYPES)
 enum PairType { kPlaneSphere, kPlaneCapsule, kPlaneEllipsoid, kPlaneCylinder,
                 kPlaneBox, kSphereSphere, kSphereCapsule, kCapsuleCapsule,
-                kSphereBox, kBoxBox };
+                kSphereBox, kBoxBox, kSphereEllipsoid, kCapsuleEllipsoid,
+                kEllipsoidEllipsoid };
 
 constexpr int kThreads = 128;
 
@@ -391,9 +408,230 @@ __device__ void box_box(const Slots& out, V3 pa, const M3& Ra, V3 sa, V3 pb,
   }
 }
 
-template <bool kBoxes>
+// ---- the convex pairs (physics/collision.py _sphere_ellipsoid and after) ----
+// H(u) = u . d + sum over the pair's ellipsoids of |s (R^T u)|: minus the
+// signed distance of the cores at its least over unit u, the normal -u.
+
+constexpr int kConvexIters = 12;      // collision._CONVEX_ITERS
+constexpr float kConvexRadius = 0.5f; // collision._CONVEX_RADIUS
+constexpr int kCircleStarts = 8;      // collision._CIRCLE_STARTS
+constexpr float kConvexNear = 0.01f;  // collision._CONVEX_NEAR
+
+struct Ell {          // an ellipsoid's rotation and semi-axes
+  M3 R;
+  V3 s;
+};
+
+__device__ __forceinline__ V3 normalize(V3 v) {
+  const float n = cmin(norm(v), 1e-12f);
+  return v3(v.x / n, v.y / n, v.z / n);
+}
+
+template <int NE>
+__device__ float h_val(V3 d, const Ell (&e)[NE], V3 u) {
+  float v = dot(u, d);
+#pragma unroll
+  for (int k = 0; k < NE; ++k)
+    v += cmin(norm(mul(e[k].s, mulTv(e[k].R, u))), 1e-12f);
+  return v;
+}
+
+// H's derivatives along the tangent directions t1 and t2: t . grad H and
+// t^T (hess H) t'
+template <int NE>
+__device__ void h_derivs(V3 d, const Ell (&e)[NE], V3 u, V3 t1, V3 t2,
+                         float& g1, float& g2, float& h11, float& h12,
+                         float& h22) {
+  g1 = dot(t1, d);
+  g2 = dot(t2, d);
+  h11 = h12 = h22 = 0.f;
+#pragma unroll
+  for (int k = 0; k < NE; ++k) {
+    const V3 w1 = mulTv(e[k].R, t1), w2 = mulTv(e[k].R, t2);
+    const V3 s2 = mul(e[k].s, e[k].s);
+    const V3 sv = mul(e[k].s, mulTv(e[k].R, u));
+    const float n = cmin(norm(sv), 1e-12f);
+    const V3 s2v = mul(e[k].s, sv);
+    const float a1 = dot(w1, s2v) / n, a2 = dot(w2, s2v) / n;
+    g1 += a1;
+    g2 += a2;
+    h11 += (dot(w1, mul(s2, w1)) - a1 * a1) / n;
+    h12 += (dot(w1, mul(s2, w2)) - a1 * a2) / n;
+    h22 += (dot(w2, mul(s2, w2)) - a2 * a2) / n;
+  }
+}
+
+// start direction k of _axis_starts: -d (an axis of the first ellipsoid
+// where the centres meet), then both signs of every ellipsoid's axes
+template <int NE>
+__device__ V3 start_dir(V3 d, const Ell (&e)[NE], int k) {
+  if (k == 0) {
+    const float dn = norm(d);
+    const float inv = cmin(dn, 1e-12f);
+    return dn > 1e-9f ? v3(-d.x / inv, -d.y / inv, -d.z / inv)
+                      : col(e[0].R, 0);
+  }
+  const int j = (k - 1) % 6;
+  const V3 a = col(e[(k - 1) / 6].R, j >> 1);
+  return (j & 1) ? -a : a;
+}
+
+// _min_on_sphere: Newton steps on the unit sphere in a trust region
+template <int NE>
+__device__ V3 min_on_sphere(V3 d, const Ell (&e)[NE], V3 u, float& val) {
+  val = h_val(d, e, u);
+  float radius = kConvexRadius;
+  for (int it = 0; it < kConvexIters; ++it) {
+    const Frame f = make_frame(u);
+    float g1, g2, h11, h12, h22;
+    h_derivs(d, e, u, f.r[1], f.r[2], g1, g2, h11, h12, h22);
+    float a = h11 - val, c = h22 - val;
+    const float b = h12;
+    const float lmin = 0.5f * (a + c) -
+                       sqrtf(0.25f * ((a - c) * (a - c)) + b * b);
+    const float shift = fmaxf(1e-6f - lmin, 0.f);
+    a += shift;
+    c += shift;
+    const float det = fmaxf(a * c - b * b, 1e-30f);
+    const float e0 = -(c * g1 - b * g2) / det, e1 = -(a * g2 - b * g1) / det;
+    const float step = sqrtf(e0 * e0 + e1 * e1);
+    const float k = fminf(radius / fmaxf(step, 1e-30f), 1.f);
+    const V3 un = normalize(u + (k * e0) * f.r[1] + (k * e1) * f.r[2]);
+    const float vn = h_val(d, e, un);
+    if (vn < val) {
+      u = un;
+      val = vn;
+      radius = fminf(2.f * radius, 1.f);
+    } else {
+      radius *= 0.25f;
+    }
+  }
+  return u;
+}
+
+// _search_circle: Newton steps on u = cos t e1 + sin t e2 from angle t
+__device__ V3 search_circle(V3 d, const Ell (&e)[1], V3 e1, V3 e2, float t,
+                            float& val) {
+  V3 u = cosf(t) * e1 + sinf(t) * e2;
+  val = h_val(d, e, u);
+  float radius = kConvexRadius;
+  for (int it = 0; it < kConvexIters; ++it) {
+    const V3 w = -sinf(t) * e1 + cosf(t) * e2;
+    float f1, g2, f2, h12, h22;
+    h_derivs(d, e, u, w, w, f1, g2, f2, h12, h22);
+    f2 -= val;
+    const float newton = -f1 / fmaxf(f2, 1e-30f);
+    const float step = f2 > 0.f ? newton : -sgnf(f1) * radius;
+    const float tn = t + clip(step, -radius, radius);
+    const V3 un = cosf(tn) * e1 + sinf(tn) * e2;
+    const float vn = h_val(d, e, un);
+    if (vn < val) {
+      t = tn;
+      u = un;
+      val = vn;
+      radius = fminf(2.f * radius, 1.f);
+    } else {
+      radius *= 0.25f;
+    }
+  }
+  return u;
+}
+
+__device__ __forceinline__ float circle_angle(int k) {
+  return (float)(2.0 * 3.14159265358979323846 * k / kCircleStarts);
+}
+
+// _convex_contact: the contact from the least H at u of the pair whose
+// geom 2 is the ellipsoid (x2, e2) and whose geom 1 has radius r1
+__device__ void convex_contact(const Slots& out, V3 u, float val, float r1,
+                               V3 x2, const Ell& e2) {
+  const V3 n = -u;
+  const float dist = -val - r1;
+  const V3 mu = mul(e2.s, mulTv(e2.R, u));
+  const float mn = cmin(norm(mu), 1e-12f);
+  const V3 sm = mulv(e2.R, mul(e2.s, mu));
+  const V3 sup = x2 + v3(sm.x / mn, sm.y / mn, sm.z / mn);
+  out.put(0, dist, sup - (0.5f * dist) * n, make_frame(n));
+}
+
+// The convex pairs, a warp a pair of an env (the blocks after the other
+// pairs'): lane k runs the k-th search of the pair's routine (_every_start
+// over the starts of start_dir; a capsule's lanes 0-6 and 7-13 its end
+// points', 14-21 its circle's from circle_angle), and the warp keeps the
+// least end, the first of ties, as the plain version's _pick does: every
+// search at once, so a pair takes one search's time whatever its shapes.
+__device__ void convex_pair(const ColModel& m, const ColIn& in,
+                            const ColOut& out, int batch, int block) {
+  const int lane = threadIdx.x & 31;
+  const int w = block * (kThreads / 32) + (threadIdx.x >> 5);
+  if (w >= batch * m.nconvex) return;            // the whole warp
+  const int b = w / m.nconvex, np = m.npair;
+  const int p = np - m.nconvex + (w - b * m.nconvex);
+  const int type = m.pair_int[kType * np + p];
+  const int g1 = m.pair_int[kG1 * np + p], g2 = m.pair_int[kG2 * np + p];
+  const float* sz = m.pair_size + p;
+  const V3 s1 = v3(sz[0], sz[np], sz[2 * np]);
+  const V3 s2 = v3(sz[3 * np], sz[4 * np], sz[5 * np]);
+  const Env env{in.geom_xpos + (size_t)b * m.ngeom * 3,
+                in.geom_xmat + (size_t)b * m.ngeom * 9};
+  const size_t row = (size_t)b * m.ncon;
+  const Slots slots{out.dist + row, out.pos + 3 * row, out.frame + 9 * row,
+                    m.pair_int[kSlot * np + p], m.pair_int[kStride * np + p]};
+  const V3 x1 = env.pos(g1), x2 = env.pos(g2);
+  const Ell e2{env.mat(g2), s2};
+  V3 u = v3(0.f, 0.f, 0.f);
+  float val = INFINITY, r1 = 0.f;
+  if (type == kSphereEllipsoid) {
+    const Ell e[1] = {e2};
+    const V3 d = x2 - x1;
+    r1 = s1.x;
+    if (lane < 7) u = min_on_sphere(d, e, start_dir(d, e, lane), val);
+  } else if (type == kCapsuleEllipsoid) {
+    const Ell e[1] = {e2};
+    const V3 a = col(env.mat(g1), 2), dc = x2 - x1;
+    const float hl = s1.y;
+    float h;
+    r1 = s1.x;
+    if (lane < 14) {
+      const V3 d = dc - (lane < 7 ? hl : -hl) * a;
+      u = min_on_sphere(d, e, start_dir(d, e, lane % 7), h);
+    } else if (lane < 14 + kCircleStarts) {
+      const Frame fa = make_frame(a);
+      u = search_circle(dc, e, fa.r[1], fa.r[2], circle_angle(lane - 14), h);
+    }
+    if (lane < 14 + kCircleStarts)
+      val = h_val(dc, e, u) + hl * fabsf(dot(u, a));
+  } else if (type == kEllipsoidEllipsoid) {
+    const Ell e[2] = {e2, {env.mat(g1), s1}};
+    const V3 d = x2 - x1;
+    if (lane < 13) u = min_on_sphere(d, e, start_dir(d, e, lane), val);
+  }
+  int k = lane;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, val, o);
+    const int ok = __shfl_xor_sync(0xffffffffu, k, o);
+    if (ov < val || (ov == val && ok < k)) {
+      val = ov;
+      k = ok;
+    }
+  }
+  const V3 best = v3(__shfl_sync(0xffffffffu, u.x, k),
+                     __shfl_sync(0xffffffffu, u.y, k),
+                     __shfl_sync(0xffffffffu, u.z, k));
+  if (lane == 0) convex_contact(slots, best, val, r1, x2, e2);
+}
+
+template <bool kBoxes, bool kConvex>
 __global__ void __launch_bounds__(kThreads)
 collision_kernel(ColModel m, ColIn in, ColOut out, int batch) {
+  if constexpr (kConvex) {
+    const int first = (batch * m.npair + kThreads - 1) / kThreads;
+    if ((int)blockIdx.x >= first) {
+      convex_pair(m, in, out, batch, (int)blockIdx.x - first);
+      return;
+    }
+  }
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= batch * m.npair) return;
   const int b = idx / m.npair, p = idx - b * m.npair;
@@ -504,20 +742,29 @@ collision_kernel(ColModel m, ColIn in, ColOut out, int batch) {
   }
 }
 
-static const void* kernel_of(int boxes) {
-  return boxes ? (const void*)collision_kernel<true>
-               : (const void*)collision_kernel<false>;
+typedef void (*ColKernel)(ColModel, ColIn, ColOut, int);
+
+// the instantiation of ``route``: bit 0 kBoxes, bit 1 kConvex; no scene
+// has both, and none is built (nullptr)
+static ColKernel kernel_of(int route) {
+  switch (route) {
+    case 0: return collision_kernel<false, false>;
+    case 1: return collision_kernel<true, false>;
+    case 2: return collision_kernel<false, true>;
+    default: return nullptr;
+  }
 }
 
 // out4 = registers per thread, local-memory bytes per thread, shared-memory
-// bytes per block, resident blocks per SM, of the instantiation ``boxes``.
-extern "C" int collision_resources(ColModel m, int boxes, int* out4) {
+// bytes per block, resident blocks per SM, of the instantiation ``route``.
+extern "C" int collision_resources(ColModel m, int route, int* out4) {
+  if (!kernel_of(route)) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel_of(boxes));
+  cudaError_t err = cudaFuncGetAttributes(&a, (const void*)kernel_of(route));
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel_of(boxes), kThreads, 0);
+      &blocks, (const void*)kernel_of(route), kThreads, 0);
   out4[0] = a.numRegs;
   out4[1] = (int)a.localSizeBytes;
   out4[2] = (int)a.sharedSizeBytes;
@@ -526,15 +773,14 @@ extern "C" int collision_resources(ColModel m, int boxes, int* out4) {
 }
 
 extern "C" int collision_launch(ColModel m, ColIn in, ColOut out, int batch,
-                                int boxes, void* stream) {
-  if (m.npair < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+                                int route, void* stream) {
+  if (m.npair < 1 || batch < 1 || !kernel_of(route))
+    return (int)cudaErrorInvalidValue;
   const long long threads = (long long)batch * m.npair;
-  const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  if (boxes)
-    collision_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        m, in, out, batch);
-  else
-    collision_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        m, in, out, batch);
+  const long long warps = (long long)batch * m.nconvex;   // a convex pair's
+  const int blocks = (int)((threads + kThreads - 1) / kThreads +
+                           (warps * 32 + kThreads - 1) / kThreads);
+  kernel_of(route)<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(m, in, out,
+                                                                 batch);
   return (int)cudaGetLastError();
 }

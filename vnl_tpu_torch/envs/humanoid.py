@@ -2,8 +2,10 @@
 HumanoidTracking and HumanoidStanding), batched over envs.
 
 Both compile their walker from an MJCF (``mjcf_path``, by default the
-committed dm_control suite humanoid, compat.DM_HUMANOID_XML; the JAX envs
-read a module constant instead) with the given solver, iterations and
+committed dm_control suite humanoid, compat.DM_HUMANOID_XML, or a path
+under the package's assets such as ``dm_cmu_humanoid/cmu_humanoid.xml``,
+the CMU humanoid of tools/export_cmu_humanoid.py; the JAX envs read a
+module constant instead) with the given solver, iterations and
 line-search rounds, and run CG, pyramidal cone and Euler as that file
 sets them: kernels A and B on every substep.  Semantics follow the JAX
 package, its deviations from the original reference included:
@@ -35,8 +37,9 @@ def load_humanoid_model(mjcf_path: str = compat.DM_HUMANOID_XML,
                         solver: str = "cg", iterations: int = 6,
                         ls_iterations: int = 6, device="cuda") -> Model:
     return mjcf.load_model(
-        mjcf_path, overrides={"solver": solver, "iterations": iterations,
-                              "ls_iterations": ls_iterations},
+        compat.asset_path(mjcf_path),
+        overrides={"solver": solver, "iterations": iterations,
+                   "ls_iterations": ls_iterations},
         device=device)
 
 

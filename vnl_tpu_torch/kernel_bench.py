@@ -298,6 +298,61 @@ def check_cg_reruns(st, args, ker, tol: float = 1e-3) -> dict:
                 budget_far=budget_far, budget_off=budget_off)
 
 
+def _env_gap(out, ref) -> torch.Tensor:
+    """Per env: the largest |out - ref| over kernel B's three outputs, each
+    over its env's largest |ref| or 1 (the judge's measure of a state)."""
+    gap = None
+    for k, w in zip(out, ref):
+        k, w = k.double().reshape(w.shape[0], -1), w.reshape(w.shape[0], -1)
+        g = (k - w).abs().amax(1) / w.abs().amax(1).clamp(min=1.0)
+        gap = g if gap is None else torch.maximum(gap, g)
+    return gap
+
+
+WIDEST_QUANTILES = (0.5, 0.9)
+
+
+def check_cg_widest(st, args, ker, room: float = 3.0,
+                    max_room: float = 10.0) -> dict:
+    """Holds kernel B's outputs ``ker`` on a system whose float32 solve is
+    not reproducible env by env (the CMU humanoid's 3,984 rows: re-runs of
+    the plain float32 solve at one rounding leave half the envs beyond
+    rtol = atol = 1e-3 of each other) by how far it lies from the plain
+    version in float64, against how far the plain version's own float32
+    solves lie.  Per env the gap is _env_gap's; the plain float32 solve
+    and 4 re-runs with its inputs scaled entry by entry by 1 + 2e-7 N(0, 1)
+    (about one rounding) give the rounding's reach.  The kernel's median
+    and 90th percentile of the gap may be at most ``room`` times the
+    largest of theirs, its largest gap ``max_room`` times theirs.  One CG
+    iteration fewer reads about 0.66 at the median against 3e-5 to 6e-5
+    for the plain re-runs, and g off by 1e-4 relative 1.7e-3 (CPU, 32
+    envs).  Raises AssertionError (or on a non-finite output); returns the
+    kernel's and the plain solves' quantiles."""
+    for name, k in zip(("qacc", "qfrc_constraint", "con_f"), ker):
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"{name}: not finite")
+    ref = cg_ops.cg_plain(*[a.double() for a in args], statics=st)
+    gen = torch.Generator(device=args[0].device).manual_seed(0)
+    plain = [cg_ops.cg_plain(*args, statics=st)] + [
+        cg_ops.cg_plain(*[a * (1.0 + 2e-7 * torch.randn(
+            a.shape, generator=gen, device=a.device, dtype=a.dtype))
+            for a in args], statics=st) for _ in range(4)]
+    qs = torch.tensor(WIDEST_QUANTILES + (1.0,), dtype=torch.float64,
+                      device=args[0].device)
+    kq = [float(v) for v in torch.quantile(_env_gap(ker, ref), qs)]
+    pq = [max(float(torch.quantile(_env_gap(p, ref), q)) for p in plain)
+          for q in qs]
+    out = dict(kernel=kq, plain=pq)
+    rooms = [room] * len(WIDEST_QUANTILES) + [max_room]
+    for q, k, p, r in zip(WIDEST_QUANTILES + (1.0,), kq, pq, rooms):
+        if not k <= r * p:
+            raise AssertionError(
+                f"kernel B: quantile {q} of the envs' gap to the plain "
+                f"version in float64 {k:.3e}, beyond {r} x the plain "
+                f"float32 solves' {p:.3e}")
+    return out
+
+
 def twin_pair(m, qpos):
     """Kernel C's input on the unfused path: the stacked pair
     [qM, qM + h diag(B)] (2, B, nv, nv) at the states ``qpos``, with qM
@@ -352,6 +407,84 @@ ELLIPSOID_SCENE = """<mujoco>
       <geom type="ellipsoid" size="0.1 0.15 0.08"/></body>
   </worldbody>
 </mujoco>"""
+
+
+# every convex pair type (sphere, capsule and ellipsoid against an
+# ellipsoid) between free bodies that overlap at their placement, and
+# a capsule on the floor beside them
+CONVEX_SCENE = """<mujoco>
+  <option timestep="0.005"/>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body pos="0 0 0.3"><freejoint/>
+      <geom type="ellipsoid" size="0.06 0.03 0.045"/></body>
+    <body pos="0.07 0.01 0.32" euler="0.3 0.5 0"><freejoint/>
+      <geom type="ellipsoid" size="0.05 0.02 0.035"/></body>
+    <body pos="-0.02 0.06 0.31" euler="0 1.2 0.4"><freejoint/>
+      <geom type="capsule" size="0.02 0.05"/></body>
+    <body pos="0.03 -0.05 0.28"><freejoint/>
+      <geom type="sphere" size="0.025"/></body>
+    <body pos="0.3 0 0.02" euler="0 1.5708 0"><freejoint/>
+      <geom type="capsule" size="0.02 0.1"/></body>
+  </worldbody>
+</mujoco>"""
+
+
+# geom 1 of deep_convex_poses by kind, and the ellipsoid (the CMU
+# humanoid's hands)
+DEEP_SIZES = dict(sphere=(0.03, 0.0, 0.0), capsule=(0.04, 0.1, 0.0),
+                  ellipsoid=(0.03, 0.02, 0.05))
+HAND = (0.042, 0.024, 0.054)
+DEEP_SCENE = """<mujoco><option><flag gravity="disable"/></option><worldbody>
+<body><freejoint/><geom type="{kind}" size="{s1}"/></body>
+<body><freejoint/><geom type="ellipsoid" size="{s2}"/></body>
+</worldbody></mujoco>"""
+
+
+def deep_convex_scene(kind: str) -> str:
+    """DEEP_SCENE with deep_convex_poses' geoms of ``kind``."""
+    n = dict(sphere=1, capsule=2, ellipsoid=3)[kind]
+    return DEEP_SCENE.format(kind=kind, s1=" ".join(
+        map(str, DEEP_SIZES[kind][:n])), s2=" ".join(map(str, HAND)))
+
+
+def deep_convex_poses(kind: str, n: int, seed: int):
+    """``n`` poses of a ``kind`` geom (DEEP_SIZES) against the CMU
+    humanoid's hand ellipsoid, geom 1's centre drawn in a 0.08-m cube
+    around the ellipsoid's and both rotations at random: most cores
+    overlap, where the support function H may have several local leasts
+    on the sphere.  Returns float64 (x (n, 2, 3), R (n, 2, 3, 3)) of the
+    two geoms and, from a grid of 8,000 directions, the greatest gap
+    along any of them, (n,): at or below the signed distance."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rotations():
+        q = torch.randn(n, 4, generator=gen, dtype=torch.float64)
+        w, x, y, z = (q / q.norm(dim=-1, keepdim=True)).unbind(-1)
+        return torch.stack([
+            1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+            2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+            2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+            -1).view(n, 3, 3)
+    R1, R2 = rotations(), rotations()
+    x1 = (2 * torch.rand(n, 3, generator=gen, dtype=torch.float64) - 1) * 0.04
+    s1 = torch.tensor(DEEP_SIZES[kind], dtype=torch.float64)
+    s2 = torch.tensor(HAND, dtype=torch.float64)
+    k = torch.arange(8000, dtype=torch.float64) + 0.5
+    polar, turn = torch.acos(1 - 2 * k / 8000), np.pi * (1 + 5 ** 0.5) * k
+    dirs = torch.stack([torch.cos(turn) * torch.sin(polar),
+                        torch.sin(turn) * torch.sin(polar), torch.cos(polar)],
+                       -1)
+    H = -x1 @ dirs.T + torch.einsum(
+        "nij,kj->nki", s2[:, None] * R2.transpose(-1, -2), dirs).norm(dim=-1)
+    if kind == "capsule":
+        H = H + s1[1] * (R1[:, :, 2] @ dirs.T).abs()
+    if kind == "ellipsoid":
+        H = H + torch.einsum("nij,kj->nki", s1[:, None]
+                             * R1.transpose(-1, -2), dirs).norm(dim=-1)
+    r1 = s1[0] if kind != "ellipsoid" else 0.0
+    x = torch.stack([x1, torch.zeros_like(x1)], 1)
+    return (x, torch.stack([R1, R2], 1)), -H.min(-1).values - r1
 
 
 def collision_states(qpos0, jnt_range, humanoid: bool, seed: int,
@@ -454,25 +587,135 @@ def assert_kept(tdist, tpos, wdist, cand_dist, cand_pos, name, atol=2e-5):
             free.pop(j)
 
 
+def convex_slots(m, con_pair) -> np.ndarray:
+    """The mask of the slots whose candidate pair is a convex pair type:
+    a sphere, capsule or ellipsoid against an ellipsoid."""
+    gt = np.asarray(m.geom_type)
+    con_pair = np.asarray(con_pair)
+    t1 = gt[np.asarray(m.pair_geom1)[con_pair]]
+    t2 = gt[np.asarray(m.pair_geom2)[con_pair]]
+    return (t2 == GeomType.ELLIPSOID) & (t1 != GeomType.PLANE)
+
+
+def _vnorm(v):
+    return torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+def _convex_pairs64(m, d):
+    """Per convex pair group, in slot order: (type 1, x1, R1, s1, x2, R2,
+    s2) in float64 from the CPU model ``m`` and Data ``d``."""
+    gx, gm = d.geom_xpos.double(), d.geom_xmat.double()
+    size = m.geom_size.double()
+    for a, b, _, idx in collision._groups(m):
+        if b == GeomType.ELLIPSOID and a != GeomType.PLANE:
+            g1, g2 = m.index(m.pair_geom1[idx]), m.index(m.pair_geom2[idx])
+            yield a, gx[:, g1], gm[:, g1], size[g1], gx[:, g2], gm[:, g2], \
+                size[g2]
+
+
+def convex_plain64(m, d):
+    """The plain version's (dist, pos, frame) of the convex slots
+    (convex_slots, in slot order) in float64."""
+    blocks = []
+    for a, *args in _convex_pairs64(m, d):
+        blocks += collision._NARROWPHASE[(a, GeomType.ELLIPSOID)](*args)
+    return tuple(torch.cat([blk[k] for blk in blocks], 1) for k in range(3))
+
+
+def convex_at_normal(m, d, normal, dist):
+    """In float64, for each convex slot: the gap of its pair along
+    ``normal`` (B, S, 3; geom 1 to geom 2), the least over geom 2 of n . b
+    less the most over geom 1 of n . a (the signed distance is the
+    greatest gap over all normals), and the contact point that normal and
+    ``dist`` (B, S) give: the ellipsoid's support point in -normal moved
+    back by half the distance, as collision._convex_contact places it."""
+    gaps, points, k = [], [], 0
+    for a, x1, R1, s1, x2, R2, s2 in _convex_pairs64(m, d):
+        n = normal[:, k:k + x1.shape[1]].double()
+        n = n / _vnorm(n)
+        u = -n
+        M2 = s2[..., :, None] * R2.transpose(-1, -2)
+        Mu = torch.einsum("...ij,...j->...i", M2, u)
+        val = torch.sum(u * (x2 - x1), -1) + _vnorm(Mu)[..., 0]
+        if a == GeomType.ELLIPSOID:
+            M1 = s1[..., :, None] * R1.transpose(-1, -2)
+            val = val + _vnorm(torch.einsum("...ij,...j->...i", M1,
+                                                u))[..., 0]
+        else:
+            val = val + s1[:, 0]
+        if a == GeomType.CAPSULE:
+            val = val + s1[:, 1] * torch.sum(u * R1[..., :, 2], -1).abs()
+        gaps.append(-val)
+        sup = x2 + torch.einsum("...ij,...j->...i", R2, s2 * Mu) \
+            / _vnorm(Mu)
+        points.append(sup - 0.5 * dist[:, k:k + x1.shape[1], None].double()
+                      * n)
+        k += x1.shape[1]
+    return torch.cat(gaps, 1), torch.cat(points, 1)
+
+
+def check_convex(got, want, m, d, convex) -> dict:
+    """Kernel E's convex slots (mask ``convex``) against the plain version:
+    distances within 2e-5 of its float32 result, as every pair's are.  The
+    normal is the least of the support function H over the unit sphere,
+    which float32 fixes only to about the square root of its rounding
+    (near the least, H moves with the square of the step), and to less
+    where the shapes press deep and H flattens.  So the normal is judged
+    by what it is for, the distance along it: the gap along the kernel's
+    normal (convex_at_normal, float64) short of the plain version's
+    float64 distance by at most 2e-5, every distance's tolerance (the
+    plain float32 normal falls short by up to 9e-7 on the CMU humanoid's
+    states, where H is about 0.5 at far pairs).  The point must be the one the
+    kernel's own normal and distance give, in float64, within 2e-5; the
+    tangents those of its own normal (physics/collision.py _make_frame)
+    within 2e-5: where the normal crosses _make_frame's switch (|n_z| =
+    0.9) within its accuracy, kernel and plain version may pick other
+    tangents, which a pyramidal cone with equal friction both ways takes
+    alike.  Raises AssertionError; returns the errors, with the plain
+    float32 normal's shortfall beside the kernel's."""
+    ref = convex_plain64(m, d)
+    g = [x[:, convex] for x in got[:3]]
+    w = [x[:, convex] for x in want[:3]]
+    gap, point = convex_at_normal(m, d, g[2][..., 0, :], g[0])
+    plain_gap, _ = convex_at_normal(m, d, w[2][..., 0, :], w[0])
+    frame = collision._make_frame(g[2][..., 0, :])
+    errs = dict(
+        convex_dist=float((g[0] - w[0]).abs().max()),
+        convex_point=float((g[1].double() - point).abs().max()),
+        convex_tangents=float((g[2] - frame).abs().max()),
+        convex_shortfall=float((ref[0] - gap).max()),
+        plain_shortfall=float((ref[0] - plain_gap).max()))
+    for field, tol in (("convex_dist", 2e-5), ("convex_point", 2e-5),
+                       ("convex_tangents", 2e-5),
+                       ("convex_shortfall", 2e-5)):
+        if not errs[field] <= tol:
+            raise AssertionError(f"kernel E {field}: {errs[field]:.3e} "
+                                 f"beyond {tol}")
+    return errs
+
+
 def check_collision(got, m, d, flat_env: bool = False) -> dict:
     """Kernel E's contacts ``got`` (collide's four outputs, on any device)
-    against collision.collide (the plain version) of the CPU model ``m`` on the CPU Data
-    ``d``: distances, points and frames at atol 2e-5 (the narrowphase
-    tests' tolerance); plane-box and box-box pairs by ``assert_kept``,
-    their frames slot for slot; with ``flat_env``, env 0 (lying exactly
-    flat: exact ties) slot for slot.  Raises AssertionError; returns the
-    largest error of each output."""
+    against collision.collide (the plain version) of the CPU model ``m``
+    on the CPU Data ``d``: distances, points and frames at atol 2e-5 (the
+    narrowphase tests' tolerance); plane-box and box-box pairs by
+    ``assert_kept``, their frames slot for slot; with ``flat_env``, env 0
+    (lying exactly flat: exact ties) slot for slot; the convex pairs by
+    check_convex.  Raises AssertionError; returns the largest error of
+    each output."""
     want = collision.collide(m, d)
     got = [x.cpu() for x in got[:3]] + [got[3]]
     np.testing.assert_array_equal(got[3], want[3])
     groups, direct = kept_slots(m.geom_type, m.pair_geom1, m.pair_geom2,
                                 want[3])
+    convex = convex_slots(m, want[3])
+    direct &= ~convex
     errs = {}
     for k, field in enumerate(("dist", "pos", "frame")):
         if got[k].shape != want[k].shape:
             raise AssertionError(f"{field}: shape {tuple(got[k].shape)}")
         errs[field] = float((got[k][:, direct] - want[k][:, direct])
-                            .abs().max())
+                            .abs().max()) if direct.any() else 0.0
     cands = box_candidates(m, d)
     for slots in groups:
         errs["frame"] = max(errs["frame"], float(
@@ -487,20 +730,24 @@ def check_collision(got, m, d, flat_env: bool = False) -> dict:
     for field, e in errs.items():
         if not e <= 2e-5:
             raise AssertionError(f"kernel E {field}: {e:.3e} beyond 2e-5")
+    if convex.any():
+        errs.update(check_convex(got, want, m, d, convex))
     return errs
 
 
-SCENE_PRESS = dict(humanoid=0.3, ant=0.3)   # both float at qpos0
+SCENE_PRESS = dict(humanoid=0.3, ant=0.3, cmu=0.2)   # all float at qpos0
 
 
 def scene(name: str, device="cuda"):
     """(model, press=..., kernels=...): the stage_split arguments of the
-    humanoid (kernels A and B, CG 6 / 6) or the ant (kernels A and C on
-    its Newton Hessians; its Newton solve never takes B), compiled from
-    the committed scenes."""
+    suite humanoid or the CMU humanoid (kernels A and B, CG 6 / 6) or the
+    ant (kernels A and C on its Newton Hessians; its Newton solve never
+    takes B), compiled from the committed scenes."""
     from vnl_tpu_torch import compat, mjcf
-    if name == "humanoid":
-        m = mjcf.load_model(compat.DM_HUMANOID_XML, overrides=dict(
+    if name in ("humanoid", "cmu"):
+        xml = dict(humanoid=compat.DM_HUMANOID_XML,
+                   cmu=compat.CMU_HUMANOID_XML)[name]
+        m = mjcf.load_model(xml, overrides=dict(
             solver="cg", iterations=6, ls_iterations=6), device=device)
         return m, dict(press=SCENE_PRESS[name], kernels=("position", "cg"))
     if name == "ant":

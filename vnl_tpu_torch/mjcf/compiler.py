@@ -79,6 +79,9 @@ _PAIR_NCON = {
     (GeomType.CAPSULE, GeomType.CAPSULE): 1,
     (GeomType.SPHERE, GeomType.BOX): 1,
     (GeomType.BOX, GeomType.BOX): 8,
+    (GeomType.SPHERE, GeomType.ELLIPSOID): 1,
+    (GeomType.CAPSULE, GeomType.ELLIPSOID): 1,
+    (GeomType.ELLIPSOID, GeomType.ELLIPSOID): 1,
 }
 
 
@@ -117,6 +120,9 @@ class _Compiler:
         self.autolimits = spec.compiler.get("autolimits", "true") == "true"
         ifg = spec.compiler.get("inertiafromgeom", "auto")
         self.inertiafromgeom = ifg  # "true" | "false" | "auto"
+        # lower bounds of every body's mass and principal inertias (0: none)
+        self.boundmass = float(spec.compiler.get("boundmass", "0"))
+        self.boundinertia = float(spec.compiler.get("boundinertia", "0"))
 
         # accumulators
         self.body_name: List[str] = []
@@ -433,10 +439,10 @@ class _Compiler:
                     itensor = np.array([[fi[0], fi[3], fi[4]],
                                         [fi[3], fi[1], fi[5]],
                                         [fi[4], fi[5], fi[2]]])
-            body_mass[b] = m
+            body_mass[b] = max(m, self.boundmass)
             body_ipos[b] = com
             diag, iq = _principal_inertia(itensor)
-            body_inertia[b] = diag
+            body_inertia[b] = np.maximum(diag, self.boundinertia)
             body_iquat[b] = iq
 
         body_subtreemass = body_mass.copy()

@@ -12,7 +12,13 @@ path went through the kernels.  Kernel B's launches on its widest route,
 Under a CUDA graph (utils/graphs.py) the wrappers' Python runs once, at
 the capture, which launches nothing; ``ReplayCounts`` takes the capture's
 counts back and adds them once for every replay, so the counts are those
-of the eager run."""
+of the eager run.
+
+``capture_notes`` holds what the wrappers note of the systems they last
+launched on, which a capture keeps in its report: kernel B's
+``solve_rows`` (the constraint rows of its system: limits and 4 facets a
+contact slot) and kernel E's ``pair_groups`` (the candidate pairs of each
+pair group, ops/collision.py PAIR_GROUPS)."""
 
 import collections
 import contextlib
@@ -61,6 +67,7 @@ KERNELS = {k.name: k for k in (
     Kernel("gae", "F", "gae", "gae", ("-fmad=false",)))}
 
 launch_counts = collections.Counter()
+capture_notes: dict = {}
 
 
 def reset_launch_counts() -> None:

@@ -23,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from vnl_tpu_torch.ops import build, launch_counts
+from vnl_tpu_torch.ops import build, capture_notes, launch_counts
 from vnl_tpu_torch.physics import constraint, solver
 from vnl_tpu_torch.physics.model import Data, Model, SolverType
 
@@ -320,6 +320,7 @@ def _launch(st: CgStatics, args, skip: int = 0):
                   B, skip=skip)
     if kernel_name(st) == "cg_kernel<0>":   # the widest route, by itself
         launch_counts["cg_widest"] += 1
+    capture_notes["solve_rows"] = nl + 4 * nc
     return qacc, qfrc, con_f
 
 

@@ -16,7 +16,7 @@ import ctypes
 import numpy as np
 import torch
 
-from vnl_tpu_torch.ops import build
+from vnl_tpu_torch.ops import build, capture_notes
 from vnl_tpu_torch.physics import collision
 from vnl_tpu_torch.physics.model import Data, GeomType, Model
 
@@ -26,6 +26,23 @@ PAIR_TYPES = tuple((a, b) for a, b, _ in collision._ORDER)
 # the fields of the int table, in the order of the source's PairI
 PAIR_FIELDS = ("type", "g1", "g2", "slot", "stride")
 BOX_TYPES = {(GeomType.PLANE, GeomType.BOX), (GeomType.BOX, GeomType.BOX)}
+CONVEX_TYPES = {(GeomType.SPHERE, GeomType.ELLIPSOID),
+                (GeomType.CAPSULE, GeomType.ELLIPSOID),
+                (GeomType.ELLIPSOID, GeomType.ELLIPSOID)}
+# the instantiations of the source, by route (bit 0 kBoxes, bit 1 kConvex);
+# no scene has both box and convex pairs, and no instantiation takes them
+ROUTES = {"no_boxes": 0, "boxes": 1, "convex": 2}
+# the pair groups a capture notes (ops.capture_notes "pair_groups"), by
+# the pair types each holds
+PAIR_GROUPS = {
+    "plane": {(GeomType.PLANE, t) for t in (GeomType.SPHERE, GeomType.CAPSULE,
+                                            GeomType.ELLIPSOID,
+                                            GeomType.CYLINDER)},
+    "body": {(GeomType.SPHERE, GeomType.SPHERE),
+             (GeomType.SPHERE, GeomType.CAPSULE),
+             (GeomType.CAPSULE, GeomType.CAPSULE)},
+    "box": BOX_TYPES | {(GeomType.SPHERE, GeomType.BOX)},
+    "convex": CONVEX_TYPES}
 
 
 def kernel_tables(m: Model) -> dict:
@@ -37,7 +54,10 @@ def kernel_tables(m: Model) -> dict:
       pair_size (6, npair): both geoms' sizes, float32;
       pair (npair,): each row's candidate pair;
       con_pair: collision.pair_expansion(m);
-      boxes: whether a pair type holds a box (the kernel's kBoxes).
+      boxes: whether a pair type holds a box (the kernel's kBoxes);
+      convex: whether a pair type is convex (CONVEX_TYPES, kConvex);
+      route: the instantiation that takes them (ROUTES);
+      pair_groups: the candidate pairs of each of PAIR_GROUPS.
     Point j of a row lands in slot ``slot + j * stride``: a row's first
     slot is where pair_expansion first names its pair, and the stride the
     number of pairs in its group (collide emits a group's points as one
@@ -47,7 +67,17 @@ def kernel_tables(m: Model) -> dict:
     for slot, p in enumerate(con_pair.tolist()):
         first.setdefault(p, slot)
     groups = collision._groups(m)
+    boxes = any((a, b) in BOX_TYPES for a, b, _, _ in groups)
+    convex = any((a, b) in CONVEX_TYPES for a, b, _, _ in groups)
+    if boxes and convex:
+        raise NotImplementedError(
+            "kernel E has no instantiation for box and convex pairs in one "
+            "scene")
     pair = np.concatenate([idx for *_, idx in groups])
+    # the convex pairs come last (collision._ORDER): the kernel takes the
+    # last nconvex rows a warp a pair
+    kinds = [(a, b) in CONVEX_TYPES for a, b, _, _ in groups]
+    assert kinds == sorted(kinds)
     g1, g2 = np.asarray(m.pair_geom1)[pair], np.asarray(m.pair_geom2)[pair]
     pair_int = np.array(
         [[PAIR_TYPES.index((a, b)), len(idx)]
@@ -60,11 +90,15 @@ def kernel_tables(m: Model) -> dict:
         pair_size=np.ascontiguousarray(
             np.concatenate([size[g1], size[g2]], 1).T),
         pair=pair, con_pair=con_pair,
-        boxes=any((a, b) in BOX_TYPES for a, b, _, _ in groups))
+        boxes=boxes, convex=convex, route=int(boxes) | 2 * int(convex),
+        pair_groups={name: sum(len(idx) for a, b, _, idx in groups
+                               if (a, b) in types)
+                     for name, types in PAIR_GROUPS.items()})
 
 
 class ColModel(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_int) for n in ("npair", "ngeom", "ncon")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("npair", "ngeom", "ncon",
+                                             "nconvex")]
                 + [(n, ctypes.c_void_p) for n in ("pair_int", "pair_size")])
 
 
@@ -85,18 +119,19 @@ def _device_model(m: Model, device: torch.device):
                                 device)
         return (ColModel(npair=len(t["pair"]), ngeom=m.ngeom,
                          ncon=len(t["con_pair"]),
+                         nconvex=t["pair_groups"]["convex"],
                          **{n: held[n].data_ptr() for n in held}), t), held
     return build.tables(m, "collision", device, make)
 
 
 def resources(m: Model) -> dict:
     """Registers per thread, local (spill) bytes, shared memory per block
-    and resident blocks per SM of both instantiations of kernel E, by
-    kBoxes ("boxes", "no_boxes"), and the one this model takes."""
+    and resident blocks per SM of every instantiation of kernel E, by its
+    name in ROUTES, and the one this model takes."""
     st, t = _device_model(m, m.device)
-    return dict(boxes=build.resources("collision", st, 1),
-                no_boxes=build.resources("collision", st, 0),
-                takes="boxes" if t["boxes"] else "no_boxes",
+    out = {name: build.resources("collision", st, route)
+           for name, route in ROUTES.items()}
+    return dict(out, takes={r: n for n, r in ROUTES.items()}[t["route"]],
                 threads=THREADS)
 
 
@@ -118,7 +153,8 @@ def _launch(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor):
     build.launch("collision", _ARGTYPES, dev, st,
                   ColIn(geom_xpos.data_ptr(), geom_xmat.data_ptr()),
                   ColOut(dist.data_ptr(), pos.data_ptr(), frame.data_ptr()),
-                  B, int(t["boxes"]))
+                  B, t["route"])
+    capture_notes["pair_groups"] = dict(t["pair_groups"])
     return dist, pos, frame, t["con_pair"]
 
 

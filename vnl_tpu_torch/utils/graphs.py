@@ -30,7 +30,10 @@ SGD update its GAE (``gae``, kernel F).  A capture reads the graph in
 progress as each tagged part begins and ends and keeps the nodes each
 added (the innermost part open gets them) in its report, ``parts``; a
 replay adds them to the ``graph_nodes.<part>`` counters of an open
-``profiler.recording``.
+``profiler.recording``.  The report also keeps what the kernels' wrappers
+noted of their systems during the capture (``ops.capture_notes``: kernel
+B's ``solve_rows``, kernel E's ``pair_groups``), which an open recording
+counts once, at the capture.
 
 On the CPU nothing is captured: a ``Graph`` of CPU tensors raises, and
 the callers run their eager code there.  A failed capture raises; nothing
@@ -52,13 +55,13 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from vnl_tpu_torch.ops import ReplayCounts, launch_counts
+from vnl_tpu_torch.ops import ReplayCounts, capture_notes, launch_counts
 from vnl_tpu_torch.parallel.mesh import collective_counts
 from vnl_tpu_torch.utils import profiler
 
 # every capture's report, in order: name, capture and instantiate
 # seconds, the graph's node count, the nodes of each tagged part, its
-# pool's bytes and the launches a replay counts
+# pool's bytes, the launches a replay counts and the kernels' notes
 REPORTS: List[dict] = []
 
 
@@ -238,6 +241,7 @@ class Graph:
         for g in generators:
             self._graph.register_generator_state(g)
         self._counts = ReplayCounts(launch_counts, collective_counts)
+        capture_notes.clear()
         with profiler.span("graph.capture") as span:
             t0 = time.perf_counter()
             # thread_local: a render job's thread may use the device
@@ -256,7 +260,10 @@ class Graph:
             nodes=self._nodes, parts=dict(parts.counts),
             pool_bytes=_pool_bytes(self._graph),
             launches_per_replay=dict(launches),
-            collectives_per_replay=dict(collectives))
+            collectives_per_replay=dict(collectives), **capture_notes)
+        for note, v in capture_notes.items():
+            for key, n in (v.items() if isinstance(v, dict) else [("", v)]):
+                profiler.count(f"{note}.{key}" if key else note, n)
         # the counters a replay adds to
         self._counters = [("graph_nodes", self._nodes)] + [
             (f"graph_nodes.{p}", n) for p, n in parts.counts.items()]
